@@ -1,0 +1,24 @@
+"""gsworld_tpu_torch — the PyTorch + CUDA port of gsworld_tpu.
+
+The JAX package ``gsworld_tpu`` stays in the repository as the reference;
+this package is held against it by the tests in ``tests/test_torch_*.py``.
+It imports ``torch`` and never ``jax`` or ``gsworld_tpu``: the calibration
+data is read from ``gsworld_tpu/constants.py`` by file path (that file
+imports only numpy), and robot specs from the JSON/NPZ data files.
+
+Subpackage map (module names follow the JAX package):
+  core/      quaternion and SE(3) math
+  physics/   robot spec loading and forward kinematics
+  envs/      static task descriptions (agents, cameras, actor names)
+  gs/        Gaussian scene tensors, synthetic scenes, slot reposing
+  render/    camera bridge, projection, binning, compositing; the CUDA
+             kernels live in ``csrc/`` and are bound in
+             ``render/rasterize_cuda.py``
+  wrapper/   GSWorldRenderer: FK -> slots -> repose -> render, batched over
+             envs x cameras
+
+Ported so far: the GS render half of the AlignFr3 step.  Physics, the
+closed loop, training and planning are still to port (ROADMAP.md).
+"""
+
+__version__ = "0.1.0"

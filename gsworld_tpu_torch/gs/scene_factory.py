@@ -1,0 +1,152 @@
+"""Scene acquisition (port of gsworld_tpu/gs/scene_factory.py, synthetic
+part).
+
+The port renders the synthetic stand-in scene, built in the GS frame of
+the scene config from the calibration data and the robot's surface
+points: link Gaussians at ``sim2gs . T_link(scan_qpos)``, object Gaussians
+at ``sim2gs_obj . (local surface)``.  The numpy draws follow the JAX
+package's order, so one seed gives one scene in both packages.
+
+Merging real PLY scans (gs/merge.py, gs/ply.py) is not ported yet:
+:func:`get_scene` raises when the scene config points at scans that exist.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gsworld_tpu_torch import constants
+from gsworld_tpu_torch.core.maths import quat_to_matrix
+from gsworld_tpu_torch.gs import synthetic
+from gsworld_tpu_torch.gs.model import (
+    GaussianScene,
+    SlotLayout,
+    build_slot_ids,
+    scene_from_splats,
+)
+from gsworld_tpu_torch.physics.kinematics import forward_kinematics
+
+
+def _apply_tf(T: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    return pts @ T[:3, :3].T + T[:3, 3]
+
+
+def synthesize_scene(
+    cfg_name: str,
+    model,                      # ArticulationModel
+    scan_qpos: np.ndarray,
+    object_names: Sequence[str],
+    seed: int = 0,
+    n_background: int = 120_000,
+    n_per_link: int = 6_000,
+    n_per_object: int = 6_000,
+    surface_points: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, np.ndarray]:
+    """Synthetic semantic splat dict in the GS frame of ``cfg_name``."""
+    gs_sem, sim2gs = constants.robot_calibration(cfg_name)
+    rng = np.random.default_rng(seed)
+    parts = []
+
+    # room shell + table patch (the sim tabletop z=0 mapped through sim2gs)
+    parts.append(synthetic.make_room_shell(
+        rng, int(n_background * 0.7), [0.0, -0.5, 0.0], [1.8, 1.2, 1.8],
+        [0.5, 0.48, 0.45], -1))
+    table_sim = rng.uniform([-0.3, -0.7, -0.01], [1.2, 0.7, 0.0],
+                            size=(n_background - int(n_background * 0.7), 3))
+    tbl = synthetic.make_blob(rng, len(table_sim), [0, 0, 0], 0.0,
+                              [0.45, 0.32, 0.2], -1, log_scale_mean=-4.8)
+    tbl["means"] = _apply_tf(np.asarray(sim2gs, np.float64),
+                             table_sim).astype(np.float32)
+    parts.append(tbl)
+
+    # robot links at their scan pose (f32 FK, as the JAX package)
+    pos, quat = forward_kinematics(
+        model, torch.as_tensor(np.asarray(scan_qpos, np.float32)))
+    Rl = quat_to_matrix(quat).numpy()
+    pos = pos.numpy()
+    for name, labels in gs_sem.items():
+        if name not in model.link_names:
+            continue
+        li = model.link_names.index(name)
+        if surface_points and name in surface_points and \
+                len(surface_points[name]) > 8:
+            local = np.asarray(surface_points[name])
+            idx = rng.integers(0, len(local), n_per_link)
+            base = local[idx] + 0.002 * rng.normal(size=(n_per_link, 3))
+        else:
+            base = 0.03 * rng.normal(size=(n_per_link, 3))
+        gs_pts = _apply_tf(sim2gs, base @ Rl[li].T + pos[li])
+        labels = labels if isinstance(labels, list) else [labels]
+        n = len(gs_pts) // len(labels)    # multi-label links split points
+        for j, lab in enumerate(labels):
+            sl = synthetic.make_blob(rng, n, [0, 0, 0], 0.0,
+                                     [0.85, 0.85, 0.88], lab,
+                                     log_scale_mean=-5.8)
+            sl["means"] = gs_pts[j * n:(j + 1) * n].astype(np.float32)
+            parts.append(sl)
+
+    palette = [[0.2, 0.7, 0.25], [0.75, 0.2, 0.2], [0.7, 0.6, 0.2],
+               [0.3, 0.4, 0.8], [0.8, 0.5, 0.2]]
+    for k, name in enumerate(object_names):
+        label = constants.obj_gs_semantics[name]
+        T_obj = constants.sim2gs_object_transforms.get(name, np.eye(4))
+        local = rng.uniform(-1, 1, size=(n_per_object, 3)) * [0.033, 0.06, 0.033]
+        sl = synthetic.make_blob(rng, n_per_object, [0, 0, 0], 0.0,
+                                 palette[k % len(palette)], label,
+                                 log_scale_mean=-5.8)
+        sl["means"] = _apply_tf(np.asarray(T_obj, np.float64),
+                                local).astype(np.float32)
+        parts.append(sl)
+    return synthetic.concat_splats(parts)
+
+
+def _real_scans_present(cfg_path: str, asset_dir: str) -> bool:
+    """True when every PLY / semantics file the scene config names exists
+    (the JAX package would then merge real scans instead of synthesizing)."""
+    with open(cfg_path) as f:
+        entries = json.load(f).get("models", [])
+
+    def exists(p):
+        return os.path.exists(p if os.path.isabs(p)
+                              else os.path.join(asset_dir, p))
+
+    return bool(entries) and all(
+        exists(e["data_path"])
+        and (not isinstance(e.get("semantic_labels"), str)
+             or exists(e["semantic_labels"]))
+        for e in entries)
+
+
+def get_scene(cfg_name: str, model, scan_qpos, object_names,
+              link_names: Sequence[str],
+              asset_dir: Optional[str] = None,
+              cfg_dir: Optional[str] = None,
+              synthetic_seed: int = 0,
+              synthetic_sizes: Optional[dict] = None,
+              surface_points: Optional[Dict[str, np.ndarray]] = None,
+              device="cpu") -> Tuple[GaussianScene, SlotLayout]:
+    """(scene, layout) of the synthetic stand-in for ``cfg_name``.
+
+    Raises NotImplementedError when ``configs/<cfg_name>.json`` resolves
+    to real scans that exist: the port cannot merge them yet, and
+    rendering a synthetic scene in their place would be silently wrong."""
+    cfg_path = os.path.join(cfg_dir or constants.CFG_DIR, f"{cfg_name}.json")
+    asset_dir = asset_dir or constants.ASSET_DIR
+    if os.path.exists(cfg_path) and _real_scans_present(cfg_path, asset_dir):
+        raise NotImplementedError(
+            f"{cfg_path} names real GS scans under {asset_dir}; merging real "
+            "scans is not ported to gsworld_tpu_torch yet")
+    gs_sem, _ = constants.robot_calibration(cfg_name)
+    splats = synthesize_scene(cfg_name, model, scan_qpos, object_names,
+                              seed=synthetic_seed,
+                              surface_points=surface_points,
+                              **(synthetic_sizes or {}))
+    slot_ids, layout = build_slot_ids(
+        splats["semantics"], gs_sem, link_names,
+        {n: constants.obj_gs_semantics[n] for n in object_names})
+    return scene_from_splats(splats, slot_ids, device=device), layout

@@ -1,0 +1,98 @@
+"""Tile binning: depth-ordered per-tile entry ranges via duplicate + sort
+(port of the depth mode of gsworld_tpu/render/binning.py:bin_entries_fused).
+
+Per frame:
+  1. depth argsort of the Gaussians (culled ones carry depth = inf and
+     sink to the end);
+  2. entry counts ``cnt = min(tile-rect area, D)`` on the pre-cull rect;
+     the E budget keeps the longest depth-ordered prefix whose inclusive
+     count sum is <= E (farthest-first drop); exclusive offsets give each
+     kept Gaussian its slots;
+  3. the emit kernel (csrc/emit.cu) writes one 64-bit key per slot,
+     ``(frame, tile) << 32 | depth bits``, and the Gaussian id; entries
+     that the exact alpha cull drops get the sentinel tile T and keep
+     their slots;
+  4. one radix sort of the keys (``torch.sort``) groups entries per
+     (frame, tile) in depth order;
+  5. per-tile segment starts by ``torch.searchsorted``.
+
+``overflow`` counts entries lost to the D cap plus those lost to the E
+budget.  All frames (envs x cameras) run batched.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gsworld_tpu_torch.render.camera import RasterConfig
+from gsworld_tpu_torch.render.project import Projected
+from gsworld_tpu_torch.render.rasterize_cuda import emit_entries
+
+
+class EntryBins(NamedTuple):
+    gaussian: torch.Tensor  # (F, E) int32 Gaussian id per sorted entry
+    starts: torch.Tensor    # (F, T+1) int32 per-tile segment starts
+    overflow: torch.Tensor  # (F,) int64 entries dropped by the D / E caps
+
+
+class EmitPlan(NamedTuple):
+    """Everything before the emit kernel: its keyword arguments and the
+    frame's overflow count (D-cap loss + E-budget loss)."""
+
+    args: dict
+    overflow: torch.Tensor  # (F,) int64
+
+
+def plan_emit(proj: Projected, cfg: RasterConfig) -> EmitPlan:
+    """Depth order, pre-cull entry counts, E budget and slot offsets of
+    frame-batched projections (F, N)."""
+    D = cfg.max_tiles_per_gaussian
+    E = cfg.max_entries
+    valid = (proj.radius > 0) & torch.isfinite(proj.depth)
+    rect = proj.rect.to(torch.int32).contiguous()
+    area = ((rect[..., 2] - rect[..., 0]) * (rect[..., 3] - rect[..., 1])
+            ).clamp_min(0).to(torch.int64)
+    area = torch.where(valid, area, torch.zeros_like(area))
+    cnt = area.clamp_max(D)
+
+    depth = torch.where(valid, proj.depth, torch.zeros_like(proj.depth))
+    order = torch.sort(torch.where(valid, depth, torch.full_like(
+        depth, float("inf"))), dim=-1, stable=True).indices
+    cnt_r = torch.gather(cnt, 1, order)
+    csum = torch.cumsum(cnt_r, dim=-1)
+    cnt_b = torch.where(csum <= E, cnt_r, torch.zeros_like(cnt_r))
+    args = dict(
+        order=order.to(torch.int32), offs=(csum - cnt_r).to(torch.int32),
+        cnt=cnt_b.to(torch.int32), total=cnt_b.sum(dim=-1).to(torch.int32),
+        rect=rect, mean2d=proj.mean2d.contiguous(),
+        conic=proj.conic.contiguous(), opacity=proj.opacity.contiguous(),
+        depth=depth.contiguous(), E=E, gx=cfg.tiles_x, T=cfg.num_tiles,
+        tile=cfg.tile, cull_alpha=cfg.cull_alpha)
+    overflow = (area - cnt).sum(dim=-1) + (cnt_r - cnt_b).sum(dim=-1)
+    return EmitPlan(args=args, overflow=overflow)
+
+
+def sort_entries(keys: torch.Tensor, gid: torch.Tensor, T: int):
+    """Radix-sort the (F, E) emit keys; -> (sorted Gaussian ids (F, E),
+    per-tile starts (F, T+1) int32)."""
+    F, E = keys.shape
+    dev = keys.device
+    keys_s, perm = torch.sort(keys.reshape(-1), stable=True)
+    gaussian = gid.reshape(-1)[perm].reshape(F, E)
+    fr = torch.arange(F, device=dev, dtype=torch.int64)
+    bounds = (fr[:, None] * (T + 1)
+              + torch.arange(T + 1, device=dev, dtype=torch.int64)) << 32
+    starts = (torch.searchsorted(keys_s, bounds.reshape(-1)).reshape(F, T + 1)
+              - fr[:, None] * E).to(torch.int32)
+    return gaussian, starts
+
+
+def bin_entries_fused(proj: Projected, cfg: RasterConfig) -> EntryBins:
+    """Bin frame-batched projected Gaussians (F, N) into per-tile entry
+    ranges."""
+    plan = plan_emit(proj, cfg)
+    keys, gid = emit_entries(**plan.args)
+    gaussian, starts = sort_entries(keys, gid, cfg.num_tiles)
+    return EntryBins(gaussian=gaussian, starts=starts, overflow=plan.overflow)

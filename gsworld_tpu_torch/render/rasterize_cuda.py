@@ -1,0 +1,411 @@
+"""The two hand-written CUDA kernels of the render path, their plain
+PyTorch versions, the build, and launch counts.
+
+  * ``emit_entries``    <- gsworld_tpu/render/rasterize_pallas.py:_emit_kernel
+                           (csrc/emit.cu)
+  * ``composite_tiles`` <- gsworld_tpu/render/rasterize_pallas.py:_segment_kernel
+                           (csrc/composite.cu)
+
+Dispatch is by the device of the tensors: a CPU tensor takes the plain
+version (the CPU tests), a CUDA tensor launches the kernel or raises.
+Nothing on the CUDA path falls back to the plain version.
+
+Build: at first use the sources in ``csrc/`` are compiled with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface under
+``_build/`` (listed in .gitignore), named by a hash of the sources and
+flags, and bound with ctypes.  Each C entry returns ``cudaGetLastError()``
+after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+SOURCES = ("emit.cu", "composite.cu")
+# --fmad=false: every f32 product rounds on its own, as in the plain
+# PyTorch versions, so kernel and plain version agree to the last bits
+# (the alpha cull's threshold compare is the sensitive one)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+ALPHA_MIN = 1.0 / 255.0
+LOG_ALPHA_MIN = float(np.log(np.float32(ALPHA_MIN)))
+ALPHA_MAX = 0.99
+T_EPS = 1e-4
+COLOR_MAX = 4.0   # colours clamp to [0, COLOR_MAX] (the JAX record range)
+PLAIN_CHUNK = 64  # entries per step of the plain compositor
+
+# launches of each kernel since the last reset; the plain versions do not
+# count
+launch_counts = {"emit_entries": 0, "composite_tiles": 0}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+class _Library:
+    """The loaded kernel library (one per process)."""
+
+    lib: Optional[ctypes.CDLL] = None
+    build_log: str = ""
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Compile (if not already built) and load the kernel library."""
+    if _Library.lib is not None:
+        return _Library.lib
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC_DIR / name).read_bytes())
+    so_path = BUILD_DIR / f"libgsw_kernels_{h.hexdigest()[:16]}.so"
+    if not so_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *[str(CSRC_DIR / n) for n in SOURCES]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _Library.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               + _Library.build_log)
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(str(so_path))
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gsw_emit_entries.argtypes = [P] * 11 + [I] * 7 + [Fl, P]
+    lib.gsw_emit_entries.restype = I
+    lib.gsw_composite_tiles.argtypes = [P] * 10 + [I] * 8 + [Fl] * 4 + [P]
+    lib.gsw_composite_tiles.restype = I
+    lib.gsw_error_string.argtypes = [I]
+    lib.gsw_error_string.restype = ctypes.c_char_p
+    _Library.lib = lib
+    return lib
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas register / shared-memory report) of the build
+    made in this process, empty when the library was already built."""
+    return _Library.build_log
+
+
+def _check(lib, rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.gsw_error_string(rc).decode()} ({rc})")
+
+
+def _require(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {t.device} are not supported "
+                         "(CPU takes the plain version, CUDA the kernel)")
+    return t.device
+
+
+# --------------------------------------------------------------------- #
+# emit
+# --------------------------------------------------------------------- #
+
+def _box_max_power(mx, my, A, B, C, tx, ty, tile: int):
+    """Exact max of the splat exponent over tile (tx, ty)'s pixel box
+    (plain version of emit.cu:box_max_power, same f32 operation order)."""
+    tpx = (tx * tile).to(torch.float32)
+    tpy = (ty * tile).to(torch.float32)
+    dx0 = tpx - mx
+    dx1 = tpx + float(tile - 1) - mx
+    dy0 = tpy - my
+    dy1 = tpy + float(tile - 1) - my
+    inside = (dx0 <= 0.0) & (dx1 >= 0.0) & (dy0 <= 0.0) & (dy1 >= 0.0)
+    As = A.clamp_min(1e-12)
+    Cs = C.clamp_min(1e-12)
+
+    def q(ddx, ddy):
+        return -0.5 * (A * ddx * ddx + C * ddy * ddy) - B * ddx * ddy
+
+    ex0 = q(dx0, torch.clamp(-B * dx0 / Cs, dy0, dy1))
+    ex1 = q(dx1, torch.clamp(-B * dx1 / Cs, dy0, dy1))
+    ey0 = q(torch.clamp(-B * dy0 / As, dx0, dx1), dy0)
+    ey1 = q(torch.clamp(-B * dy1 / As, dx0, dx1), dy1)
+    pw = torch.maximum(torch.maximum(ex0, ex1), torch.maximum(ey0, ey1))
+    return torch.where(inside, torch.zeros_like(pw), pw)
+
+
+def emit_slots(order, offs, cnt, rect, mean2d, conic, opacity, *,
+               tile: int):
+    """Every kept slot of the emit stage, enumerated in plain PyTorch:
+    (frame, slot, cull score, (tile x, tile y, flat Gaussian index)).
+    The cull score is ``box max power + log(opacity)``; the alpha cull
+    keeps a slot when it is >= LOG_ALPHA_MIN, so ``score - LOG_ALPHA_MIN``
+    tells borderline entries apart when kernel and plain version
+    disagree."""
+    F, N = order.shape
+    dev = order.device
+    cnt_l = cnt.reshape(-1).long()
+    rank = torch.repeat_interleave(torch.arange(F * N, device=dev), cnt_l)
+    run0 = torch.cumsum(cnt_l, 0) - cnt_l
+    d = torch.arange(rank.numel(), device=dev) - run0[rank]
+    f = rank // N
+    gi = f * N + order.reshape(-1)[rank].long()
+    r = rect.reshape(-1, 4)[gi].long()
+    w = (r[:, 2] - r[:, 0]).clamp_min(1)
+    dy = d // w
+    tx, ty = r[:, 0] + d - dy * w, r[:, 1] + dy
+    m = mean2d.reshape(-1, 2)[gi]
+    c = conic.reshape(-1, 3)[gi]
+    pw = _box_max_power(m[:, 0], m[:, 1], c[:, 0], c[:, 1], c[:, 2],
+                        tx, ty, tile)
+    lop = torch.log(opacity.reshape(-1)[gi].clamp_min(1e-12))
+    slot = offs.reshape(-1)[rank].long() + d
+    return f, slot, pw + lop, (tx, ty, gi)
+
+
+def emit_entries_reference(order, offs, cnt, total, rect, mean2d, conic,
+                           opacity, depth, *, E: int, gx: int, T: int,
+                           tile: int, cull_alpha: bool):
+    """Plain PyTorch version of the emit kernel (same inputs/outputs as
+    :func:`emit_entries`)."""
+    F, N = order.shape
+    dev = order.device
+    f, slot, score, (tx, ty, gi) = emit_slots(
+        order, offs, cnt, rect, mean2d, conic, opacity, tile=tile)
+    tile_id = ty * gx + tx
+    if cull_alpha:
+        tile_id = torch.where(score >= LOG_ALPHA_MIN, tile_id,
+                              torch.full_like(tile_id, T))
+    dbits = depth.reshape(-1)[gi].contiguous().view(torch.int32).long()
+    key = ((f * (T + 1) + tile_id) << 32) | dbits
+    fr = torch.arange(F, device=dev, dtype=torch.int64)
+    keys = (((fr * (T + 1) + T) << 32) | 0x7F800000)[:, None].expand(
+        F, E).contiguous()
+    gid = torch.full((F, E), -1, dtype=torch.int32, device=dev)
+    flat = f * E + slot
+    keys.view(-1)[flat] = key
+    gid.view(-1)[flat] = (gi - f * N).to(torch.int32)
+    return keys, gid
+
+
+def emit_entries(order, offs, cnt, total, rect, mean2d, conic, opacity,
+                 depth, *, E: int, gx: int, T: int, tile: int,
+                 cull_alpha: bool):
+    """Expand depth-ranked Gaussians into per-(tile, Gaussian) entries.
+
+    Args (F frames, N Gaussians): ``order`` (F, N) int32 Gaussian id per
+    depth rank; ``offs``/``cnt`` (F, N) int32 exclusive slot offset and
+    kept entry count per rank; ``total`` (F,) int32 kept slots per frame;
+    ``rect`` (F, N, 4) int32; ``mean2d`` (F, N, 2), ``conic`` (F, N, 3),
+    ``opacity``/``depth`` (F, N) f32.
+    Returns ``keys`` (F, E) int64 = ((f (T+1) + tile) << 32) | depth bits
+    (tile = T for culled and unused slots) and ``gid`` (F, E) int32
+    (-1 in unused slots)."""
+    if order.device.type == "cpu":
+        return emit_entries_reference(order, offs, cnt, total, rect, mean2d,
+                                      conic, opacity, depth, E=E, gx=gx,
+                                      T=T, tile=tile, cull_alpha=cull_alpha)
+    dev = _cuda_device(order, "emit_entries")
+    F, N = order.shape
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt, shp in (
+            ("order", order, i32, (F, N)), ("offs", offs, i32, (F, N)),
+            ("cnt", cnt, i32, (F, N)), ("total", total, i32, (F,)),
+            ("rect", rect, i32, (F, N, 4)), ("mean2d", mean2d, f32, (F, N, 2)),
+            ("conic", conic, f32, (F, N, 3)), ("opacity", opacity, f32, (F, N)),
+            ("depth", depth, f32, (F, N))):
+        _require(t, name, dt, shp, dev)
+    if F * (T + 1) >= 2 ** 31:
+        raise ValueError("frame/tile key does not fit 32 bits")
+    lib = build_kernels()
+    keys = torch.empty((F, E), dtype=torch.int64, device=dev)
+    gid = torch.empty((F, E), dtype=i32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gsw_emit_entries(
+        order.data_ptr(), offs.data_ptr(), cnt.data_ptr(), total.data_ptr(),
+        rect.data_ptr(), mean2d.data_ptr(), conic.data_ptr(),
+        opacity.data_ptr(), depth.data_ptr(), keys.data_ptr(),
+        gid.data_ptr(), F, N, E, gx, T, tile, int(cull_alpha),
+        LOG_ALPHA_MIN, stream)
+    _check(lib, rc, "emit_entries")
+    launch_counts["emit_entries"] += 1
+    return keys, gid
+
+
+# --------------------------------------------------------------------- #
+# composite
+# --------------------------------------------------------------------- #
+
+def _tiles_to_image(x, F, gy, gx, tile, H, W):
+    """(F, T, P, ...) per-tile pixels -> (F, H, W, ...)."""
+    rest = x.shape[3:]
+    x = x.reshape((F, gy, gx, tile, tile) + rest)
+    x = x.permute((0, 1, 3, 2, 4) + tuple(range(5, 5 + len(rest))))
+    return x.reshape((F, gy * tile, gx * tile) + rest)[:, :H, :W]
+
+
+def composite_tiles_reference(starts, gaussian, mean2d, conic, opacity,
+                              color, semantics, *, width: int, height: int,
+                              tile: int, bg):
+    """Plain PyTorch version of the compositor (same inputs/outputs as
+    :func:`composite_tiles`): entries in chunks of PLAIN_CHUNK, vectorised
+    over all tiles and pixels; transmittance by cumulative product."""
+    F, N = opacity.shape
+    T = starts.shape[1] - 1
+    gx = -(-width // tile)
+    gy = -(-height // tile)
+    dev = mean2d.device
+    P = tile * tile
+    lp = torch.arange(P, device=dev)
+    tid = torch.arange(T, device=dev)
+    pxi = (tid % gx)[:, None] * tile + (lp % tile)[None, :]      # (T, P)
+    pyi = (tid // gx)[:, None] * tile + (lp // tile)[None, :]
+    px = pxi.to(torch.float32)[None, :, :, None]                 # (1,T,P,1)
+    py = pyi.to(torch.float32)[None, :, :, None]
+
+    s = starts[:, :T].long()
+    e = starts[:, 1:].long()
+    Tr = torch.ones((F, T, P), device=dev)
+    acc = torch.zeros((F, T, P, 3), device=dev)
+    best_w = torch.zeros((F, T, P), device=dev)
+    best_sem = torch.full((F, T, P), -1, dtype=torch.int64, device=dev)
+    done = ((pxi >= width) | (pyi >= height))[None].expand(F, T, P).clone()
+    fbase = (torch.arange(F, device=dev) * N)[:, None, None]
+    m2 = mean2d.reshape(F * N, 2)
+    cn = conic.reshape(F * N, 3)
+    op_all = opacity.reshape(F * N)
+    col_all = color.reshape(F * N, 3).clamp(0.0, COLOR_MAX)
+    maxlen = int((e - s).max()) if T > 0 else 0
+    ar = torch.arange(PLAIN_CHUNK, device=dev)
+    for c0 in range(0, maxlen, PLAIN_CHUNK):
+        j = s[..., None] + c0 + ar                                # (F,T,C)
+        inseg = j < e[..., None]
+        jj = torch.where(inseg, j, torch.zeros_like(j))
+        g = torch.gather(gaussian.long(), 1, jj.reshape(F, -1)).reshape(
+            jj.shape)
+        g = torch.where(inseg, g, torch.zeros_like(g))
+        gi = fbase + g
+        mx, my = m2[gi, 0][:, :, None], m2[gi, 1][:, :, None]    # (F,T,1,C)
+        A, B, C = (cn[gi, k][:, :, None] for k in range(3))
+        op = op_all[gi][:, :, None]
+        dx = mx - px
+        dy = my - py
+        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+        contrib = inseg[:, :, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        a = torch.where(contrib, alpha, torch.zeros_like(alpha))
+        T_incl = Tr[..., None] * torch.cumprod(1.0 - a, dim=-1)
+        stop = (T_incl < T_EPS) | done[..., None]                # (F,T,P,C)
+        T_excl = torch.cat([Tr[..., None], T_incl[..., :-1]], dim=-1)
+        w = torch.where(stop, torch.zeros_like(a), a * T_excl)
+        acc = acc + torch.einsum("ftpc,ftck->ftpk", w, col_all[gi])
+        if semantics is not None:
+            sem = semantics.long()[g][:, :, None, :].expand_as(w)
+            wmax = w.max(dim=-1).values
+            cand = torch.where((w == wmax[..., None]) & (w > 0), sem,
+                               torch.full_like(sem, -2 ** 62)
+                               ).max(dim=-1).values
+            take = (wmax > best_w) | ((wmax == best_w) & (cand > best_sem))
+            best_w = torch.where(take, wmax, best_w)
+            best_sem = torch.where(take, cand, best_sem)
+        Tr = torch.where(stop, Tr[..., None].expand_as(T_incl),
+                         T_incl).min(dim=-1).values
+        done = stop.any(dim=-1)
+        if bool(done.all()):
+            break
+    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+    rgb = acc + Tr[..., None] * bg_t
+    img = _tiles_to_image(rgb, F, gy, gx, tile, height, width)
+    T_img = _tiles_to_image(Tr, F, gy, gx, tile, height, width)
+    seg = None
+    if semantics is not None:
+        seg = torch.where(best_w > T_EPS, best_sem, torch.full_like(
+            best_sem, -1)).to(torch.int32)
+        seg = _tiles_to_image(seg, F, gy, gx, tile, height, width)
+    return img.contiguous(), T_img.contiguous(), (
+        seg.contiguous() if seg is not None else None)
+
+
+def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
+                    semantics, *, width: int, height: int, tile: int, bg):
+    """Front-to-back alpha compositing of the sorted entry stream.
+
+    Args: ``starts`` (F, T+1) int32 per-tile segment starts into
+    ``gaussian`` (F, E) int32 sorted entries' Gaussian ids; ``mean2d``
+    (F, N, 2), ``conic`` (F, N, 3), ``opacity`` (F, N), ``color`` (F, N, 3)
+    f32; ``semantics`` (N,) int32 or None.
+    Returns (img (F, H, W, 3), T (F, H, W), seg (F, H, W) int32 or None)."""
+    if mean2d.device.type == "cpu":
+        return composite_tiles_reference(
+            starts, gaussian, mean2d, conic, opacity, color, semantics,
+            width=width, height=height, tile=tile, bg=bg)
+    dev = _cuda_device(mean2d, "composite_tiles")
+    F, N = opacity.shape
+    T = starts.shape[1] - 1
+    E = gaussian.shape[1]
+    gx = -(-width // tile)
+    if T != gx * (-(-height // tile)):
+        raise ValueError(f"starts has {T} tiles, expected "
+                         f"{gx * (-(-height // tile))}")
+    if tile * tile > 1024:
+        raise ValueError("composite kernel supports tiles up to 32x32")
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt, shp in (
+            ("starts", starts, i32, (F, T + 1)),
+            ("gaussian", gaussian, i32, (F, E)),
+            ("mean2d", mean2d, f32, (F, N, 2)),
+            ("conic", conic, f32, (F, N, 3)),
+            ("opacity", opacity, f32, (F, N)),
+            ("color", color, f32, (F, N, 3))):
+        _require(t, name, dt, shp, dev)
+    if semantics is not None:
+        _require(semantics, "semantics", i32, (N,), dev)
+    lib = build_kernels()
+    img = torch.empty((F, height, width, 3), dtype=f32, device=dev)
+    T_img = torch.empty((F, height, width), dtype=f32, device=dev)
+    seg = (torch.empty((F, height, width), dtype=i32, device=dev)
+           if semantics is not None else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gsw_composite_tiles(
+        starts.data_ptr(), gaussian.data_ptr(), mean2d.data_ptr(),
+        conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
+        semantics.data_ptr() if semantics is not None else None,
+        img.data_ptr(), T_img.data_ptr(),
+        seg.data_ptr() if seg is not None else None,
+        F, N, E, T, gx, tile, width, height,
+        float(bg[0]), float(bg[1]), float(bg[2]), COLOR_MAX, stream)
+    _check(lib, rc, "composite_tiles")
+    launch_counts["composite_tiles"] += 1
+    return img, T_img, seg

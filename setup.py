@@ -7,9 +7,12 @@ setup(
         "TPU-native closed-loop photorealistic simulation engine for robotic "
         "manipulation (JAX/XLA/Pallas)"
     ),
-    packages=find_packages(include=["gsworld_tpu", "gsworld_tpu.*"]),
+    packages=find_packages(include=["gsworld_tpu", "gsworld_tpu.*",
+                                    "gsworld_tpu_torch",
+                                    "gsworld_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "flax", "numpy"],
     include_package_data=True,
-    package_data={"gsworld_tpu": ["assets/**/*.json", "assets/**/*.npz"]},
+    package_data={"gsworld_tpu": ["assets/**/*.json", "assets/**/*.npz"],
+                  "gsworld_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
 )
