@@ -16,9 +16,12 @@ Subpackage map (module names follow the JAX package):
              ``render/rasterize_cuda.py``
   wrapper/   GSWorldRenderer: FK -> slots -> repose -> render, batched over
              envs x cameras
+  train3dgs/ 3DGS training: loss, per-group Adam, densify/prune, trainer
+  real2sim/  train_from_colmap_model: point cloud + posed images -> scene
 
-Ported so far: the GS render half of the AlignFr3 step.  Physics, the
-closed loop, training and planning are still to port (ROADMAP.md).
+Ported so far: the GS render half of the AlignFr3 step and 3DGS training
+(the differentiable render).  Physics, the closed loop, planning and the
+COLMAP / real-scan I/O are still to port (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

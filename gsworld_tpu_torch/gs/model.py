@@ -133,3 +133,25 @@ def scene_from_splats(splats: Dict[str, np.ndarray],
         log_scales=splats["scales"], quats=splats["quats"],
         logit_opacities=splats["opacities"], semantics=splats["semantics"],
         slot_ids=slot_ids), device=device)
+
+
+def scene_to_numpy(scene: GaussianScene) -> Dict[str, np.ndarray]:
+    """Every field as a numpy array keyed by its name (inverse of
+    :func:`scene_from_numpy`)."""
+    return {f: getattr(scene, f).detach().cpu().numpy() for f in SCENE_FIELDS}
+
+
+def scene_to_splats(scene: GaussianScene) -> Dict[str, np.ndarray]:
+    """Splat dict in the PLY layout (inverse of :func:`scene_from_splats`,
+    without slot ids)."""
+    a = scene_to_numpy(scene)
+    n = scene.num_gaussians
+    return {
+        "means": a["means"],
+        "sh0": a["sh0"].reshape(n, 3, 1),
+        "shN": a["shN"].reshape(n, 3, 15),
+        "scales": a["log_scales"],
+        "quats": a["quats"],
+        "opacities": a["logit_opacities"].reshape(n, 1),
+        "semantics": a["semantics"],
+    }

@@ -1,11 +1,19 @@
 """Render dispatch: project -> bin -> composite (port of
-gsworld_tpu/render/rasterize.py:render, the segment-compositor path).
+gsworld_tpu/render/rasterize.py:render, the segment-compositor path, and of
+its differentiable branch ``_composite_pallas_diff``).
 
 Leading axes of the Gaussians and cameras broadcast and are flattened
 into one frame axis, so every frame (envs x cameras) goes through one
 emit launch, one sort and one compositor launch.  The stages are marked
 with ``record_function`` ranges (``gsw.*``) that torch.profiler reads; they
 cost nothing when no profiler runs.
+
+Without semantics the render is differentiable with respect to the
+projected floats through :class:`CompositeFunction` (forward: the
+compositor; backward: the backward kernel, then a scatter-add per
+Gaussian).  Binning is integer plumbing and runs on detached tensors, as
+the JAX package's ``stop_gradient`` does; the segmentation path is not
+differentiable.
 """
 
 from __future__ import annotations
@@ -14,10 +22,48 @@ import torch
 from torch.profiler import record_function
 
 from gsworld_tpu_torch.gs.transform import PosedGaussians
-from gsworld_tpu_torch.render.binning import bin_entries_fused
+from gsworld_tpu_torch.render.binning import EntryBins, bin_entries_fused
 from gsworld_tpu_torch.render.camera import GSCamera, RasterConfig
 from gsworld_tpu_torch.render.project import Projected, project_gaussians
-from gsworld_tpu_torch.render.rasterize_cuda import composite_tiles
+from gsworld_tpu_torch.render.rasterize_cuda import (
+    composite_bwd,
+    composite_tiles,
+    scatter_entry_rows,
+)
+
+
+class CompositeFunction(torch.autograd.Function):
+    """Differentiable compositor over frame-batched floats (F, N, ...).
+
+    ``apply(mean2d, conic, opacity, color, starts, gaussian, cfg)`` ->
+    (img (F, H, W, 3), T (F, H, W)).  The backward returns per-frame
+    gradients shaped like the inputs; autograd sums frames that share a
+    scene."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, color, starts, gaussian,
+                cfg: RasterConfig):
+        img, T_img, _ = composite_tiles(
+            starts, gaussian, mean2d, conic, opacity, color, None,
+            width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
+        ctx.cfg = cfg
+        ctx.save_for_backward(mean2d, conic, opacity, color, starts,
+                              gaussian, img, T_img)
+        return img, T_img
+
+    @staticmethod
+    def backward(ctx, img_ct, T_ct):
+        mean2d, conic, opacity, color, starts, gaussian, img, T_img = (
+            ctx.saved_tensors)
+        cfg = ctx.cfg
+        with record_function("gsw.composite_bwd"):
+            rows = composite_bwd(
+                starts, gaussian, mean2d, conic, opacity, color, img, T_img,
+                img_ct.contiguous(), T_ct.contiguous(), width=cfg.width,
+                height=cfg.height, tile=cfg.tile)
+            acc = scatter_entry_rows(rows, gaussian, opacity.shape[1])
+        return (acc[..., 0:2], acc[..., 2:5], acc[..., 8], acc[..., 5:8],
+                None, None, None)
 
 
 def project_frames(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0,
@@ -30,22 +76,41 @@ def project_frames(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0,
                        for x in proj)), lead
 
 
+def bin_detached(flat: Projected, cfg: RasterConfig) -> EntryBins:
+    """Bin frame-batched projections outside the autograd graph."""
+    with torch.no_grad():
+        return bin_entries_fused(Projected(*(x.detach() for x in flat)), cfg)
+
+
+def render_projected(flat: Projected, cfg: RasterConfig, semantics=None):
+    """Bin and composite frame-batched projections (F, N, ...) ->
+    (img (F, H, W, 3), T (F, H, W), seg (F, H, W) or None, bins)."""
+    with record_function("gsw.bin"):
+        bins = bin_detached(flat, cfg)
+    with record_function("gsw.composite"):
+        if semantics is None:
+            img, T_img = CompositeFunction.apply(
+                flat.mean2d, flat.conic, flat.opacity, flat.color,
+                bins.starts, bins.gaussian, cfg)
+            return img, T_img, None, bins
+        with torch.no_grad():
+            img, T_img, seg = composite_tiles(
+                bins.starts, bins.gaussian, flat.mean2d, flat.conic,
+                flat.opacity, flat.color,
+                semantics.to(torch.int32).contiguous(),
+                width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
+        return img, T_img, seg, bins
+
+
 def render(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0, shN,
            semantics=None):
     """Forward render -> dict with ``rgb`` (..., H, W, 3) in [0, 1],
     ``T`` (..., H, W) final transmittance, ``seg`` (..., H, W) int32 (when
-    ``semantics`` (N,) is given, else None) and ``overflow`` (...)."""
+    ``semantics`` (N,) is given, else None) and ``overflow`` (...).
+    ``rgb`` and ``T`` are differentiable when ``semantics`` is None."""
     with record_function("gsw.project"):
         flat, lead = project_frames(g, cam, cfg, sh0, shN)
-    with record_function("gsw.bin"):
-        bins = bin_entries_fused(flat, cfg)
-    with record_function("gsw.composite"):
-        sem = (semantics.to(torch.int32).contiguous()
-               if semantics is not None else None)
-        img, T_img, seg = composite_tiles(
-            bins.starts, bins.gaussian, flat.mean2d, flat.conic,
-            flat.opacity, flat.color, sem,
-            width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
+    img, T_img, seg, bins = render_projected(flat, cfg, semantics)
     hw = (cfg.height, cfg.width)
     return dict(rgb=img.reshape(lead + hw + (3,)), T=T_img.reshape(lead + hw),
                 seg=seg.reshape(lead + hw) if seg is not None else None,

@@ -1,10 +1,12 @@
-"""The two hand-written CUDA kernels of the render path, their plain
-PyTorch versions, the build, and launch counts.
+"""The three hand-written CUDA kernels of the render and training paths,
+their plain PyTorch versions, the build, and launch counts.
 
   * ``emit_entries``    <- gsworld_tpu/render/rasterize_pallas.py:_emit_kernel
                            (csrc/emit.cu)
   * ``composite_tiles`` <- gsworld_tpu/render/rasterize_pallas.py:_segment_kernel
                            (csrc/composite.cu)
+  * ``composite_bwd``   <- gsworld_tpu/render/rasterize_pallas.py:_bwd_kernel
+                           (csrc/composite_bwd.cu)
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (the CPU tests), a CUDA tensor launches the kernel or raises.
@@ -34,7 +36,7 @@ import torch
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("emit.cu", "composite.cu")
+SOURCES = ("emit.cu", "composite.cu", "composite_bwd.cu")
 # --fmad=false: every f32 product rounds on its own, as in the plain
 # PyTorch versions, so kernel and plain version agree to the last bits
 # (the alpha cull's threshold compare is the sensitive one)
@@ -51,7 +53,7 @@ PLAIN_CHUNK = 64  # entries per step of the plain compositor
 
 # launches of each kernel since the last reset; the plain versions do not
 # count
-launch_counts = {"emit_entries": 0, "composite_tiles": 0}
+launch_counts = {"emit_entries": 0, "composite_tiles": 0, "composite_bwd": 0}
 
 
 def reset_launch_counts():
@@ -101,6 +103,8 @@ def build_kernels() -> ctypes.CDLL:
     lib.gsw_emit_entries.restype = I
     lib.gsw_composite_tiles.argtypes = [P] * 10 + [I] * 8 + [Fl] * 4 + [P]
     lib.gsw_composite_tiles.restype = I
+    lib.gsw_composite_bwd.argtypes = [P] * 11 + [I] * 8 + [Fl, P]
+    lib.gsw_composite_bwd.restype = I
     lib.gsw_error_string.argtypes = [I]
     lib.gsw_error_string.restype = ctypes.c_char_p
     _Library.lib = lib
@@ -276,62 +280,110 @@ def _tiles_to_image(x, F, gy, gx, tile, H, W):
     return x.reshape((F, gy * tile, gx * tile) + rest)[:, :H, :W]
 
 
-def composite_tiles_reference(starts, gaussian, mean2d, conic, opacity,
-                              color, semantics, *, width: int, height: int,
-                              tile: int, bg):
-    """Plain PyTorch version of the compositor (same inputs/outputs as
-    :func:`composite_tiles`): entries in chunks of PLAIN_CHUNK, vectorised
-    over all tiles and pixels; transmittance by cumulative product."""
-    F, N = opacity.shape
-    T = starts.shape[1] - 1
-    gx = -(-width // tile)
-    gy = -(-height // tile)
-    dev = mean2d.device
+def _image_to_tiles(x, gy, gx, tile):
+    """(F, H, W, ...) -> (F, T, P, ...) per-tile pixels, zero beyond the
+    image (inverse of :func:`_tiles_to_image`)."""
+    F, H, W = x.shape[:3]
+    rest = x.shape[3:]
+    pad = x.new_zeros((F, gy * tile, gx * tile) + rest)
+    pad[:, :H, :W] = x
+    pad = pad.reshape((F, gy, tile, gx, tile) + rest)
+    pad = pad.permute((0, 1, 3, 2, 4) + tuple(range(5, 5 + len(rest))))
+    return pad.reshape((F, gy * gx, tile * tile) + rest)
+
+
+# The two plain compositors (forward and backward) share these steps, so
+# that both rebuild the same transmittance sequence from the same
+# operations.
+
+def _tile_pixels(T, gx, tile, width, height, dev, dtype):
+    """Pixel coordinates (1, T, P, 1) of every tile and the (T, P) mask of
+    pixels beyond the image."""
     P = tile * tile
     lp = torch.arange(P, device=dev)
     tid = torch.arange(T, device=dev)
     pxi = (tid % gx)[:, None] * tile + (lp % tile)[None, :]      # (T, P)
     pyi = (tid // gx)[:, None] * tile + (lp // tile)[None, :]
-    px = pxi.to(torch.float32)[None, :, :, None]                 # (1,T,P,1)
-    py = pyi.to(torch.float32)[None, :, :, None]
+    return (pxi.to(dtype)[None, :, :, None], pyi.to(dtype)[None, :, :, None],
+            (pxi >= width) | (pyi >= height))
+
+
+def _chunk_splats(c0, s, e, gaussian, m2, cn, op_all, px, py):
+    """Entries [s + c0, s + c0 + PLAIN_CHUNK) of every tile against every
+    pixel of the tile.  Returns the flat entry index (F, T, C), its
+    in-segment mask, the flat Gaussian index and the per-(pixel, entry)
+    terms (F, T, P, C) of the blend."""
+    F = s.shape[0]
+    N = op_all.shape[0] // F
+    ar = torch.arange(PLAIN_CHUNK, device=s.device)
+    j = s[..., None] + c0 + ar                                    # (F,T,C)
+    inseg = j < e[..., None]
+    jj = torch.where(inseg, j, torch.zeros_like(j))
+    g = torch.gather(gaussian.long(), 1, jj.reshape(F, -1)).reshape(jj.shape)
+    g = torch.where(inseg, g, torch.zeros_like(g))
+    gi = (torch.arange(F, device=s.device) * N)[:, None, None] + g
+    mx, my = m2[gi, 0][:, :, None], m2[gi, 1][:, :, None]        # (F,T,1,C)
+    A, B, C = (cn[gi, k][:, :, None] for k in range(3))
+    op = op_all[gi][:, :, None]
+    dx = mx - px
+    dy = my - py
+    power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+    G = torch.exp(power)
+    alpha = torch.clamp_max(op * G, ALPHA_MAX)
+    contrib = inseg[:, :, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+    a = torch.where(contrib, alpha, torch.zeros_like(alpha))
+    return j, inseg, gi, dict(dx=dx, dy=dy, A=A, B=B, C=C, G=G, alpha=alpha,
+                              contrib=contrib, a=a)
+
+
+def _transmit(Tr, done, a):
+    """One chunk of the front-to-back transmittance walk: T before each
+    entry, the stop mask (pixel done before or at the entry), and the walk
+    state (T, done) after the chunk."""
+    T_incl = Tr[..., None] * torch.cumprod(1.0 - a, dim=-1)
+    stop = (T_incl < T_EPS) | done[..., None]                    # (F,T,P,C)
+    T_excl = torch.cat([Tr[..., None], T_incl[..., :-1]], dim=-1)
+    Tr = torch.where(stop, Tr[..., None].expand_as(T_incl),
+                     T_incl).min(dim=-1).values
+    return T_excl, stop, Tr, stop.any(dim=-1)
+
+
+def composite_tiles_reference(starts, gaussian, mean2d, conic, opacity,
+                              color, semantics, *, width: int, height: int,
+                              tile: int, bg):
+    """Plain PyTorch version of the compositor (same inputs/outputs as
+    :func:`composite_tiles`): entries in chunks of PLAIN_CHUNK, vectorised
+    over all tiles and pixels; transmittance by cumulative product.  Works
+    in the dtype of ``mean2d`` (f64 for gradient checks)."""
+    F, N = opacity.shape
+    T = starts.shape[1] - 1
+    gx = -(-width // tile)
+    gy = -(-height // tile)
+    dev, dt = mean2d.device, mean2d.dtype
+    P = tile * tile
+    px, py, outside = _tile_pixels(T, gx, tile, width, height, dev, dt)
 
     s = starts[:, :T].long()
     e = starts[:, 1:].long()
-    Tr = torch.ones((F, T, P), device=dev)
-    acc = torch.zeros((F, T, P, 3), device=dev)
-    best_w = torch.zeros((F, T, P), device=dev)
+    Tr = torch.ones((F, T, P), dtype=dt, device=dev)
+    acc = torch.zeros((F, T, P, 3), dtype=dt, device=dev)
+    best_w = torch.zeros((F, T, P), dtype=dt, device=dev)
     best_sem = torch.full((F, T, P), -1, dtype=torch.int64, device=dev)
-    done = ((pxi >= width) | (pyi >= height))[None].expand(F, T, P).clone()
-    fbase = (torch.arange(F, device=dev) * N)[:, None, None]
+    done = outside[None].expand(F, T, P).clone()
     m2 = mean2d.reshape(F * N, 2)
     cn = conic.reshape(F * N, 3)
     op_all = opacity.reshape(F * N)
     col_all = color.reshape(F * N, 3).clamp(0.0, COLOR_MAX)
     maxlen = int((e - s).max()) if T > 0 else 0
-    ar = torch.arange(PLAIN_CHUNK, device=dev)
     for c0 in range(0, maxlen, PLAIN_CHUNK):
-        j = s[..., None] + c0 + ar                                # (F,T,C)
-        inseg = j < e[..., None]
-        jj = torch.where(inseg, j, torch.zeros_like(j))
-        g = torch.gather(gaussian.long(), 1, jj.reshape(F, -1)).reshape(
-            jj.shape)
-        g = torch.where(inseg, g, torch.zeros_like(g))
-        gi = fbase + g
-        mx, my = m2[gi, 0][:, :, None], m2[gi, 1][:, :, None]    # (F,T,1,C)
-        A, B, C = (cn[gi, k][:, :, None] for k in range(3))
-        op = op_all[gi][:, :, None]
-        dx = mx - px
-        dy = my - py
-        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
-        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
-        contrib = inseg[:, :, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
-        a = torch.where(contrib, alpha, torch.zeros_like(alpha))
-        T_incl = Tr[..., None] * torch.cumprod(1.0 - a, dim=-1)
-        stop = (T_incl < T_EPS) | done[..., None]                # (F,T,P,C)
-        T_excl = torch.cat([Tr[..., None], T_incl[..., :-1]], dim=-1)
+        _, _, gi, sp = _chunk_splats(c0, s, e, gaussian, m2, cn, op_all,
+                                     px, py)
+        T_excl, stop, Tr_next, done = _transmit(Tr, done, sp["a"])
+        a = sp["a"]
         w = torch.where(stop, torch.zeros_like(a), a * T_excl)
         acc = acc + torch.einsum("ftpc,ftck->ftpk", w, col_all[gi])
         if semantics is not None:
+            g = gi - (torch.arange(F, device=dev) * N)[:, None, None]
             sem = semantics.long()[g][:, :, None, :].expand_as(w)
             wmax = w.max(dim=-1).values
             cand = torch.where((w == wmax[..., None]) & (w > 0), sem,
@@ -340,12 +392,10 @@ def composite_tiles_reference(starts, gaussian, mean2d, conic, opacity,
             take = (wmax > best_w) | ((wmax == best_w) & (cand > best_sem))
             best_w = torch.where(take, wmax, best_w)
             best_sem = torch.where(take, cand, best_sem)
-        Tr = torch.where(stop, Tr[..., None].expand_as(T_incl),
-                         T_incl).min(dim=-1).values
-        done = stop.any(dim=-1)
+        Tr = Tr_next
         if bool(done.all()):
             break
-    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+    bg_t = torch.as_tensor(bg, dtype=dt, device=dev)
     rgb = acc + Tr[..., None] * bg_t
     img = _tiles_to_image(rgb, F, gy, gx, tile, height, width)
     T_img = _tiles_to_image(Tr, F, gy, gx, tile, height, width)
@@ -409,3 +459,156 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
     _check(lib, rc, "composite_tiles")
     launch_counts["composite_tiles"] += 1
     return img, T_img, seg
+
+
+# --------------------------------------------------------------------- #
+# composite backward
+# --------------------------------------------------------------------- #
+
+BWD_FIELDS = 9  # per-entry row: d mean2d (2), d conic (3), d colour (3),
+#                 d opacity (1), as the JAX backward records
+
+
+def composite_bwd_reference(starts, gaussian, mean2d, conic, opacity, color,
+                            img, T_img, img_ct, T_ct, *, width: int,
+                            height: int, tile: int):
+    """Plain PyTorch version of the compositor backward (same inputs and
+    output as :func:`composite_bwd`), in the dtype of ``mean2d``.
+
+    Walks the entries in PLAIN_CHUNK steps exactly as
+    :func:`composite_tiles_reference` does, so the transmittance sequence
+    and the stop mask are the forward's.  Per (pixel, entry), with the
+    pixel's RGB cotangent g and r = g . c (colour clamped as the forward
+    reads it):
+        w    = alpha T_excl                       (0 once stopped)
+        s    = S_total - prefix(w r),  S_total = g . rgb_out + T_fin tct
+        ebar = T_excl r - s / (1 - alpha)         (live contributors only)
+    and the entry's row sums over its tile's pixels:
+        d colour  = sum w g
+        d opacity = sum ebar e^power                [alpha < 0.99]
+        q = ebar alpha [alpha < 0.99] is the cotangent of power, which
+        gives d mean2d = -sum q (A dx + B dy, C dy + B dx) and
+        d conic = -sum q (dx^2 / 2, dx dy, dy^2 / 2).
+    The colour gradient passes the [0, COLOR_MAX] clamp straight through,
+    as the JAX backward does; the two differ only for colours above the
+    clamp."""
+    F, N = opacity.shape
+    T = starts.shape[1] - 1
+    E = gaussian.shape[1]
+    gx = -(-width // tile)
+    gy = -(-height // tile)
+    dev, dt = mean2d.device, mean2d.dtype
+    P = tile * tile
+    px, py, outside = _tile_pixels(T, gx, tile, width, height, dev, dt)
+    gct = _image_to_tiles(img_ct, gy, gx, tile)                  # (F,T,P,3)
+    tct = _image_to_tiles(T_ct, gy, gx, tile)                    # (F,T,P)
+    S_total = ((gct * _image_to_tiles(img, gy, gx, tile)).sum(dim=-1)
+               + _image_to_tiles(T_img, gy, gx, tile) * tct)
+
+    s = starts[:, :T].long()
+    e = starts[:, 1:].long()
+    Tr = torch.ones((F, T, P), dtype=dt, device=dev)
+    pref = torch.zeros((F, T, P), dtype=dt, device=dev)
+    done = outside[None].expand(F, T, P).clone()
+    m2 = mean2d.reshape(F * N, 2)
+    cn = conic.reshape(F * N, 3)
+    op_all = opacity.reshape(F * N)
+    col_all = color.reshape(F * N, 3).clamp(0.0, COLOR_MAX)
+    out = torch.zeros((F * E, BWD_FIELDS), dtype=dt, device=dev)
+    fE = (torch.arange(F, device=dev) * E)[:, None, None]
+    maxlen = int((e - s).max()) if T > 0 else 0
+    for c0 in range(0, maxlen, PLAIN_CHUNK):
+        j, inseg, gi, sp = _chunk_splats(c0, s, e, gaussian, m2, cn, op_all,
+                                         px, py)
+        a, alpha = sp["a"], sp["alpha"]
+        T_excl, stop, Tr, done = _transmit(Tr, done, a)
+        live = sp["contrib"] & ~stop
+        zero = torch.zeros_like(a)
+        w = torch.where(live, a * T_excl, zero)
+        r = torch.einsum("ftpk,ftck->ftpc", gct, col_all[gi])
+        pre = pref[..., None] + torch.cumsum(w * r, dim=-1)
+        ebar = torch.where(live, T_excl * r - (S_total[..., None] - pre)
+                           / (1.0 - a), zero)
+        unclamped = alpha < ALPHA_MAX
+        q = torch.where(unclamped, ebar * alpha, zero)
+        dx, dy = sp["dx"], sp["dy"]
+        A, B, C = sp["A"], sp["B"], sp["C"]
+        rows = torch.cat([
+            torch.stack([
+                -(q * (A * dx + B * dy)).sum(dim=2),
+                -(q * (C * dy + B * dx)).sum(dim=2),
+                -0.5 * (q * dx * dx).sum(dim=2),
+                -(q * dx * dy).sum(dim=2),
+                -0.5 * (q * dy * dy).sum(dim=2)], dim=-1),
+            torch.einsum("ftpc,ftpk->ftck", w, gct),
+            torch.where(unclamped, ebar * sp["G"], zero).sum(dim=2)[..., None],
+        ], dim=-1)                                              # (F,T,C,9)
+        out[(fE + j)[inseg]] = rows[inseg]
+        pref = pre[..., -1]
+        if bool(done.all()):
+            break
+    return out.reshape(F, E, BWD_FIELDS)
+
+
+def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
+                  T_img, img_ct, T_ct, *, width: int, height: int, tile: int):
+    """Gradients of the compositor per sorted entry.
+
+    Args: the compositor's inputs (``starts`` (F, T+1) int32, ``gaussian``
+    (F, E) int32, ``mean2d`` (F, N, 2), ``conic`` (F, N, 3), ``opacity``
+    (F, N), ``color`` (F, N, 3)), its outputs ``img`` (F, H, W, 3) and
+    ``T_img`` (F, H, W), and their cotangents ``img_ct``, ``T_ct`` of the
+    same shapes.
+    Returns (F, E, 9) rows [d mean2d (2), d conic (3), d colour (3),
+    d opacity] per sorted entry, zero beyond the live segments; the
+    per-Gaussian gradient is their scatter-add by ``gaussian``."""
+    if mean2d.device.type == "cpu":
+        return composite_bwd_reference(
+            starts, gaussian, mean2d, conic, opacity, color, img, T_img,
+            img_ct, T_ct, width=width, height=height, tile=tile)
+    dev = _cuda_device(mean2d, "composite_bwd")
+    F, N = opacity.shape
+    T = starts.shape[1] - 1
+    E = gaussian.shape[1]
+    gx = -(-width // tile)
+    if T != gx * (-(-height // tile)):
+        raise ValueError(f"starts has {T} tiles, expected "
+                         f"{gx * (-(-height // tile))}")
+    if tile * tile > 1024:
+        raise ValueError("composite_bwd kernel supports tiles up to 32x32")
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt, shp in (
+            ("starts", starts, i32, (F, T + 1)),
+            ("gaussian", gaussian, i32, (F, E)),
+            ("mean2d", mean2d, f32, (F, N, 2)),
+            ("conic", conic, f32, (F, N, 3)),
+            ("opacity", opacity, f32, (F, N)),
+            ("color", color, f32, (F, N, 3)),
+            ("img", img, f32, (F, height, width, 3)),
+            ("T_img", T_img, f32, (F, height, width)),
+            ("img_ct", img_ct, f32, (F, height, width, 3)),
+            ("T_ct", T_ct, f32, (F, height, width))):
+        _require(t, name, dt, shp, dev)
+    lib = build_kernels()
+    out = torch.zeros((F, E, BWD_FIELDS), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gsw_composite_bwd(
+        starts.data_ptr(), gaussian.data_ptr(), mean2d.data_ptr(),
+        conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
+        img.data_ptr(), T_img.data_ptr(), img_ct.data_ptr(),
+        T_ct.data_ptr(), out.data_ptr(), F, N, E, T, gx, tile, width,
+        height, COLOR_MAX, stream)
+    _check(lib, rc, "composite_bwd")
+    launch_counts["composite_bwd"] += 1
+    return out
+
+
+def scatter_entry_rows(rows, gaussian, N: int):
+    """Scatter-add per-entry rows (F, E, K) into per-Gaussian sums
+    (F, N, K) by the entries' Gaussian ids (rows of unused entries are
+    zero).  ``index_add_`` on the card adds in no fixed order."""
+    F, E, K = rows.shape
+    idx = ((torch.arange(F, device=rows.device) * N)[:, None]
+           + gaussian.long().clamp_min(0)).reshape(-1)
+    acc = torch.zeros((F * N, K), dtype=rows.dtype, device=rows.device)
+    return acc.index_add_(0, idx, rows.reshape(-1, K)).reshape(F, N, K)

@@ -331,7 +331,8 @@ class TestCompositor:
             tp.conic[None], tp.opacity[None], tp.color[None], None,
             width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
         assert rasterize_cuda.launch_counts == {"emit_entries": 0,
-                                                "composite_tiles": 0}
+                                                "composite_tiles": 0,
+                                                "composite_bwd": 0}
 
 
 class TestVsGolden:
