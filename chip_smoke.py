@@ -75,6 +75,31 @@ TRAIN_VIEWS = 9
 TRAIN_ARC_DEG = 120.0
 STEP_TOL = 1e-4         # one train step, card vs CPU, relative to field max
 
+# Roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
+# lane instructions (67 TFLOP/s counts an FMA as two), MUFU operations
+# (exp, reciprocal: 16 per SM and clock) and HBM bytes, per second
+F32_RATE = 3.35e13          # 132 SMs x 128 lanes x 1.98 GHz
+MUFU_RATE = 4.18e12         # 132 SMs x 16 x 1.98 GHz
+HBM_RATE = 3.35e12
+# f32 instructions per (pixel, entry) pair, counted from csrc/composite.cu
+# and csrc/composite_bwd.cu (--fmad=false, so every product and sum is an
+# instruction of its own; expf is ~6 plus one MUFU.EX2, an IEEE divide ~6
+# plus one MUFU.RCP).  The bounds charge only the work no walk can avoid:
+# every blended pair's test, exp and blend, and one box test per live
+# entry; a pair that a perfect cull would skip costs nothing there.
+OPS_TEST = 12       # dx, dy, the exponent, its > 0 test
+OPS_EXP = 9         # expf, the opacity product and clamp, the alpha test
+OPS_BLEND_FWD = 12  # the stop test, the weight, colour sums, segmentation
+OPS_BLEND_BWD = 51  # the stop test, the suffix sum, nine gradient terms
+OPS_CULL = 95       # one entry's box-max exponent test (subtile_keep in
+MUFU_CULL = 2       # csrc/composite_common.cuh: two divides among them)
+ENTRY_BYTES = 40    # per live entry: Gaussian id + 9 floats (mean, conic,
+#                     opacity, colour) read once
+SEM_BYTES = 4       # + its semantic id, when segmenting
+ROW_BYTES = 36      # the backward's 9-float row per entry, written once
+FWD_PIXEL_BYTES = 16  # RGB + T written (+ SEM_BYTES of segmentation)
+BWD_PIXEL_BYTES = 32  # RGB, T and their cotangents read
+
 
 def log(msg):
     print(msg, flush=True)
@@ -227,6 +252,135 @@ def worst_pixel(ik, tk, ip, tp, excused, starts, gaussian, mean2d, conic,
             f"{near_p:.3g}")
 
 
+def bound_of(ops, mufu, nbytes):
+    """The least time (ms) of ``ops`` f32 instructions, ``mufu`` MUFU
+    operations and ``nbytes`` HBM bytes on one H100, and what binds it:
+    -> (bound_ms, "operations" or "bytes", {resource: ms})."""
+    parts = {"f32": 1e3 * ops / F32_RATE, "mufu": 1e3 * mufu / MUFU_RATE,
+             "bytes": 1e3 * nbytes / HBM_RATE}
+    worst = max(parts, key=parts.get)
+    return parts[worst], ("bytes" if worst == "bytes" else "operations"), parts
+
+
+def composite_work(starts, gaussian, proj, cfg):
+    """Entries per tile, the (pixel, entry) pairs the walk needs (plain
+    walk, rasterize_cuda.walk_counts) and the longest walk of any pixel
+    of a tile and of a 16x16 sub-tile: what one block of the compositors
+    must walk at least.  -> dict of numbers; per-frame lists where
+    marked."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    per_tile = (starts[:, 1:] - starts[:, :-1]).double()
+    w = rc.walk_counts(starts, gaussian, proj.mean2d, proj.conic,
+                       proj.opacity, width=cfg.width, height=cfg.height,
+                       tile=cfg.tile)
+    walked = w["walked"]
+    F, H, W = walked.shape
+
+    def block_max(sub):
+        gx, gy = -(-W // sub), -(-H // sub)
+        pad = walked.new_zeros((F, gy * sub, gx * sub))
+        pad[:, :H, :W] = walked
+        return pad.reshape(F, gy, sub, gx, sub).amax(dim=(2, 4))
+
+    kept = subtile_kept(starts, gaussian, proj, cfg)
+    return dict(
+        kept_total=int(kept.sum()), kept_max=int(kept.max()),
+        tile_max=per_tile.amax(dim=1).long().tolist(),
+        tile_p99=torch.quantile(per_tile, 0.99, dim=1).round().long().tolist(),
+        tile_mean=[round(x, 1) for x in per_tile.mean(dim=1).tolist()],
+        live=int(starts[:, -1].sum()),
+        walked=int(walked.sum()), exps=int(w["exps"].sum()),
+        blended=int(w["blended"].sum()),
+        walk_tile_max=int(block_max(cfg.tile).max()),
+        walk_sub16_max=int(block_max(16).max()),
+        walk_sub8_max=int(block_max(8).max()),
+        pixels=F * H * W)
+
+
+def subtile_kept(starts, gaussian, proj, cfg):
+    """Entries each block of the compositor kernels walks after its
+    sub-tile cull (plain versions of the record gather and the cull):
+    (F, T, S) counts over the S sub-tiles of each tile."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    F, T = starts.shape[0], starts.shape[1] - 1
+    sub = min(rc.SUB_TILE, cfg.tile)
+    ns = -(-cfg.tile // sub)
+    gx = -(-cfg.width // cfg.tile)
+    rec = rc.pack_records_reference(starts, gaussian, proj.mean2d,
+                                    proj.conic, proj.opacity, proj.color,
+                                    None)
+    kept = torch.zeros((F, T, ns * ns), dtype=torch.int64,
+                       device=starts.device)
+    for f in range(F):
+        n = int(starts[f, -1])
+        t = torch.repeat_interleave(
+            torch.arange(T, device=starts.device),
+            (starts[f, 1:] - starts[f, :-1]).long())
+        for s in range(ns * ns):
+            lx0, ly0 = (s % ns) * sub, (s // ns) * sub
+            x0 = ((t % gx) * cfg.tile + lx0).float()
+            y0 = ((t // gx) * cfg.tile + ly0).float()
+            x1 = x0 + (min(lx0 + sub, cfg.tile) - lx0 - 1)
+            y1 = y0 + (min(ly0 + sub, cfg.tile) - ly0 - 1)
+            keep = rc.subtile_keep_reference(rec[f, :n], x0, x1, y0, y1)
+            kept[f, :, s].index_add_(0, t, keep.long())
+    return kept
+
+
+def composite_bounds(work, segment):
+    """Bounds of the forward and backward compositors on ``work``
+    (composite_work): the blended pairs' tests, exps and blends (the
+    backward's with its divide) and one box test per live entry, against
+    the bytes moved once -> {"fwd": (ms, by, parts), "bwd": ...}."""
+    pairs, live = work["blended"], work["live"]
+    cull_ops, cull_mufu = OPS_CULL * live, MUFU_CULL * live
+    fwd_ops = (OPS_TEST + OPS_EXP + OPS_BLEND_FWD) * pairs + cull_ops
+    bwd_ops = (OPS_TEST + OPS_EXP + OPS_BLEND_BWD) * pairs + cull_ops
+    ent = ENTRY_BYTES + (SEM_BYTES if segment else 0)
+    fwd_px = FWD_PIXEL_BYTES + (SEM_BYTES if segment else 0)
+    return dict(
+        fwd=bound_of(fwd_ops, pairs + cull_mufu,
+                     live * ent + work["pixels"] * fwd_px),
+        bwd=bound_of(bwd_ops, 2 * pairs + cull_mufu,
+                     live * (ENTRY_BYTES + ROW_BYTES)
+                     + work["pixels"] * BWD_PIXEL_BYTES))
+
+
+def work_line(phase, work, timed):
+    """One line: the tile histogram, the pairs, and per kernel (``timed``:
+    (name, bound_of result, measured ms)) its bound, what binds it and
+    its share of the bound at the measured time."""
+    parts = []
+    for name, (b, by, p), ms in timed:
+        parts.append(f"{name} bound {b:.4f} ms ({by}; f32 {p['f32']:.4f}, "
+                     f"MUFU {p['mufu']:.4f}, bytes {p['bytes']:.4f} ms), "
+                     f"kernel {ms:.4f} ms, share of bound (bound / kernel) "
+                     f"{100 * b / ms:.2f}%")
+    return (f"phase {phase} work: entries per tile max {work['tile_max']}, "
+            f"p99 {work['tile_p99']}, mean {work['tile_mean']}; {work['live']}"
+            f" live entries; pairs walked {work['walked']} (exp "
+            f"{work['exps']}, blended {work['blended']}); after the "
+            f"16x16 sub-tile cull the blocks walk {work['kept_total']} "
+            f"entries, at most {work['kept_max']} in one; longest walk of "
+            f"one pixel {work['walk_tile_max']} entries (its 32x32 tile), "
+            f"longest of a 16x16 sub-tile {work['walk_sub16_max']}, of an "
+            f"8x8 {work['walk_sub8_max']}; " + "; ".join(parts))
+
+
+def emit_bound(a):
+    """Bound of the emit kernel on its inputs ``a`` (plan_emit args): the
+    ranked Gaussians that emit read their 56 bytes (rank, offset, count,
+    rect, mean, conic, opacity, depth), the others their count; every
+    slot's 12-byte key and id is written.  Bytes bind (~50 f32
+    instructions per kept entry for the box cull are far below)."""
+    F, N = a["order"].shape
+    emitting = int((a["cnt"] > 0).sum())
+    nbytes = emitting * 56 + (F * N - emitting) * 4 + F * a["E"] * 12
+    return bound_of(50 * int(a["total"].sum()), emitting, nbytes)
+
+
 def phase_kernels(renderer, state):
     """Emit and compositor kernels vs plain versions on the frames of one
     render step (every env x camera), with the inputs the render path
@@ -285,9 +439,20 @@ def phase_kernels(renderer, state):
     comp_args = (starts_k, gaus_k, proj.mean2d, proj.conic, proj.opacity,
                  proj.color, sem)
     kw = dict(width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
-    ik, tk, sk = rc.composite_tiles(*comp_args, **kw)
+    ik, tk, sk, rec_k = rc.composite_tiles(*comp_args, **kw)
     ip, tp, sp = rc.composite_tiles_reference(*comp_args, **kw)
+    rec_p = rc.pack_records_reference(*comp_args)
     torch.cuda.synchronize()
+    live = (torch.arange(a["E"], device=rec_k.device)[None]
+            < starts_k[:, -1:].long())
+    # copied fields bit for bit; the log of the opacity (logf against
+    # torch.log) to 2 f32 ulps
+    lk, lp = rec_k[live][:, 10], rec_p[live][:, 10]
+    if not (torch.equal(rec_k[live][:, :10].view(torch.int32),
+                        rec_p[live][:, :10].view(torch.int32))
+            and bool(((lk - lp).abs() <= 2.4e-7 * lp.abs()).all())):
+        raise AssertionError("composite: the record gather differs from "
+                             "the plain gather")
     rgb_f, t_f, excused = composite_gate(ik, tk, ip, tp)     # per frame
     rgb_err, t_err = float(rgb_f.max()), float(t_f.max())
     n_excused = int(excused.sum())
@@ -298,7 +463,8 @@ def phase_kernels(renderer, state):
         raise AssertionError(f"composite: rgb err {rgb_err:.3g}, T err "
                              f"{t_err:.3g} ({n_excused} stop flips "
                              f"excused), seg mismatch {seg_mis:.4%}")
-    log(f"phase 3 composite, {F} frames: max |rgb| err {rgb_err:.3g}, max |T| err "
+    log(f"phase 3 composite, {F} frames: records equal the plain gather "
+        f"(log opacity to 2 ulps); max |rgb| err {rgb_err:.3g}, max |T| err "
         f"{t_err:.3g} over all but {n_excused} stop-flip pixels (per frame "
         f"{excused.flatten(1).sum(1).tolist()}), seg mismatch "
         f"{seg_mis:.4%} (tolerance {RGB_TOL}, {SEG_MISMATCH_MAX:.1%}); per "
@@ -312,17 +478,24 @@ def phase_kernels(renderer, state):
         lambda: rc.composite_tiles_reference(*comp_args, **kw), reps=10)
     log(f"phase 3 composite time: kernel {comp_ms:.4f} ms, plain "
         f"{comp_plain_ms:.4f} ms")
+    work = composite_work(starts_k, gaus_k, proj, cfg)
+    fwd = composite_bounds(work, segment=True)["fwd"]
+    emit_b = emit_bound(a)
+    log(work_line(3, work, [("composite", fwd, comp_ms),
+                            ("emit", emit_b, emit_ms)]))
     return [
         dict(name="emit_entries", route="cuda",
              source="gsworld_tpu_torch/csrc/emit.cu",
              replaces="gsworld_tpu/render/rasterize_pallas.py:117",
              max_abs_err=float(d_starts), ms=emit_ms,
-             plain_ms=emit_plain_ms),
+             plain_ms=emit_plain_ms, bound_ms=emit_b[0],
+             bound_by=emit_b[1], library_ms=None),
         dict(name="composite_tiles", route="cuda",
              source="gsworld_tpu_torch/csrc/composite.cu",
              replaces="gsworld_tpu/render/rasterize_pallas.py:323",
              max_abs_err=max(rgb_err, t_err), ms=comp_ms,
-             plain_ms=comp_plain_ms),
+             plain_ms=comp_plain_ms, bound_ms=fwd[0], bound_by=fwd[1],
+             library_ms=None),
     ]
 
 
@@ -567,15 +740,15 @@ def phase_backward(setup):
         bins = bin_detached(flat, cfg)
     args = (bins.starts, bins.gaussian, flat.mean2d, flat.conic,
             flat.opacity, flat.color)
-    img, T, _ = rc.composite_tiles(*args, None, width=cfg.width,
-                                   height=cfg.height, tile=cfg.tile,
-                                   bg=cfg.bg)
+    img, T, _, rec = rc.composite_tiles(*args, None, width=cfg.width,
+                                        height=cfg.height, tile=cfg.tile,
+                                        bg=cfg.bg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     img_ct = torch.randn(img.shape, generator=gen, device=dev)
     T_ct = 0.5 * torch.randn(T.shape, generator=gen, device=dev)
     bwd_args = (*args, img, T, img_ct, T_ct)
     kw = dict(width=cfg.width, height=cfg.height, tile=cfg.tile)
-    rows_k = rc.composite_bwd(*bwd_args, **kw)
+    rows_k = rc.composite_bwd(*bwd_args, **kw, records=rec)
     rows_p = rc.composite_bwd_reference(*bwd_args, **kw)
     torch.cuda.synchronize()
     N = flat.opacity.shape[1]
@@ -596,7 +769,8 @@ def phase_backward(setup):
         f"{int(bins.overflow[0])}): max |kernel - plain| / max |plain| "
         f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} } (tolerance "
         f"{BWD_TOL})")
-    ms = cuda_ms(lambda: rc.composite_bwd(*bwd_args, **kw), reps=20)
+    ms = cuda_ms(lambda: rc.composite_bwd(*bwd_args, **kw, records=rec),
+                 reps=20)
     plain_ms = cuda_ms(lambda: rc.composite_bwd_reference(*bwd_args, **kw),
                        reps=3)
     fwd_ms = cuda_ms(lambda: rc.composite_tiles(*args, None, bg=cfg.bg, **kw),
@@ -604,10 +778,16 @@ def phase_backward(setup):
     log(f"phase 3b composite_bwd time: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms (forward kernel on the same frame "
         f"{fwd_ms:.4f} ms)")
+    work = composite_work(bins.starts, bins.gaussian, flat, cfg)
+    bounds = composite_bounds(work, segment=False)
+    log(work_line("3b", work, [("composite_bwd", bounds["bwd"], ms),
+                               ("composite", bounds["fwd"], fwd_ms)]))
     return dict(name="composite_bwd", route="cuda",
                 source="gsworld_tpu_torch/csrc/composite_bwd.cu",
                 replaces="gsworld_tpu/render/rasterize_pallas.py:535",
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
+                library_ms=None)
 
 
 def train_params():
@@ -742,8 +922,13 @@ def phase_small_train():
         f"{STEP_TOL})")
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1-3b only and print no result line")
+    args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_device()
     sys.path.insert(0, REPO)
@@ -757,6 +942,9 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(renderer, states[0])
     kernels.append(phase_backward(setup))
+    if args.kernels_only:
+        log(json.dumps({"kernels": kernels}))
+        return           # a partial run prints no result line
     counts, slice_line = phase_slice(renderer, states)
     phase_profile(4, "render", lambda i: renderer.render(states[i]))
     phase_small_agreement()

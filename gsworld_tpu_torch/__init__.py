@@ -2,9 +2,12 @@
 
 The JAX package ``gsworld_tpu`` stays in the repository as the reference;
 this package is held against it by the tests in ``tests/test_torch_*.py``.
-It imports ``torch`` and never ``jax`` or ``gsworld_tpu``: the calibration
-data is read from ``gsworld_tpu/constants.py`` by file path (that file
-imports only numpy), and robot specs from the JSON/NPZ data files.
+It imports ``torch`` and never ``jax`` or ``gsworld_tpu``, and loads no
+module of the JAX package: the calibration data is the port's own copy
+(``constants.py``, held equal to the JAX package's by
+``tests/test_torch_constants.py``), and robot specs are read from the
+JSON/NPZ data files under ``gsworld_tpu/assets/``.  Entry points run on
+the card (``device="cuda"``) unless the caller asks for the CPU.
 
 Subpackage map (module names follow the JAX package):
   core/      quaternion and SE(3) math

@@ -6,150 +6,173 @@
 // rasterize_pallas.py:834).  The TPU kernel evaluated 128-entry chunks
 // with split-bf16 MXU matmuls (a polynomial basis for the exponent and a
 // triangular log-space prefix for transmittance) and read 10-bit colours
-// from packed records.  None of that carries over: this is the 3DGS
-// renderCUDA pattern, in f32 throughout.
-//
-// One block per (tile, frame), 256 threads, 4 pixels per thread (a
-// 32x32 tile).  The block walks the tile's depth-sorted entry range
-// [starts[t], starts[t+1]) in batches of 256 entries: each thread fetches
-// one entry's record by its Gaussian id (mean2d, conic, opacity, colour
-// clamped to [0, COLOR_MAX], semantic id) into shared memory, then every
-// thread blends the batch into its pixels.  Per pixel, with dx, dy from
+// from packed records.  None of that carries over: per pixel this is the
+// 3DGS renderCUDA loop, in f32 throughout.  Per pixel, with dx, dy from
 // the integer pixel position to the mean:
 //   power = -1/2 (A dx^2 + C dy^2) - B dx dy;  skip if power > 0
 //   alpha = min(0.99, opacity e^power);        skip if alpha < 1/255
 //   stop before the entry that takes T below 1e-4
 //   rgb += alpha T c;  T *= 1 - alpha
 // Segmentation keeps the semantic id of the max-weight contributor (ties
-// to the higher id), -1 where the best weight is <= 1e-4.  The block
-// leaves the loop once every pixel is done (__syncthreads_count).
+// to the higher id), -1 where the best weight is <= 1e-4.
 //
-// What bounds it on the card: the per-pixel ALU work (~20 flops and one
-// exp per pixel-entry pair, ~3e8 pairs per 640x480 frame at the bench
-// scene) and the dependent loop over a tile's entries; the record fetch
-// is a gather of ~40 bytes per entry through L2.  Keeping four pixels per
-// thread in registers amortises each shared-memory record read.
+// What bounds it on the card.  The work no walk can avoid is the blended
+// pairs: ~33 f32 instructions and one MUFU.EX2 each (test, exp, blend),
+// plus a ~95-instruction box test per live entry (chip_smoke.py counts
+// them per run).  The f32 instruction rate binds: 0.022 ms on the
+// 640x480 training frame (21.6M blended pairs) and 0.132 ms on the 8
+// frames of a render step (129M); bytes, records and pixels moved once,
+// are 0.004 and 0.036 ms.  The
+// earlier form, one block of 256 threads x 4 pixels per 32x32 tile
+// walking the whole entry list with gathers by Gaussian id, took 4.26 ms
+// on the training frame and 2.29 ms on the render step.  There pixels
+// almost never reach the stop (95% of the pairs a tile holds are walked)
+// and only 10% of the walked pairs blend: each pixel tested every entry
+// of its tile, and 300 blocks of up to 8583 entries for 132 SMs left the
+// heaviest tiles to set the time.
+//
+// What this design does about it (csrc/composite_common.cuh):
+//   * a block per 16x16 sub-tile (4 per 32x32 tile, 256 threads, one
+//     pixel each), so a heavy tile is walked by 4 SMs and each sub-tile
+//     stops as soon as its own pixels are done;
+//   * an exact, conservative cull of each batch against the sub-tile
+//     (one entry per thread) and then, for each warp, against the two
+//     rows it covers (32 survivors per step, one per lane), so a warp
+//     loops only over entries that can reach alpha >= 1/255 on its own
+//     pixels; every pixel's walk is bit for bit unchanged;
+//   * records gathered once after the sort into a contiguous array and
+//     staged 256 at a time by TMA bulk copies into two shared buffers, the
+//     next batch in flight while this one is blended.
+// On NVIDIA H100 80GB HBM3 at 700 W (each form's chip_smoke.py, in turns
+// on one card): 0.46 ms on the training frame against 4.24-4.32, 0.82-
+// 0.84 ms on the render step against 2.34-2.35, with the earlier form's
+// errors against the plain version.  Tensor cores are not
+// used: the per-pair work is an exp and a dependent product of
+// transmittances, not a matrix product.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPix = 4;       // pixels per thread: tile * tile <= 1024
-constexpr int kBatch = 256;   // entries staged per batch (one per thread)
+using namespace gsw;
 
-__global__ void __launch_bounds__(kThreads) composite_kernel(
+constexpr int kBatch = kThreads;   // entries per batch: one cull per thread
+
+__global__ void __launch_bounds__(kThreads) pack_records_kernel(
     const int* __restrict__ starts,   // (F, T + 1)
-    const int* __restrict__ gid,      // (F, E) sorted entries' Gaussian ids
+    const int* __restrict__ gid,      // (F, E)
     const float* __restrict__ mean2d, // (F, N, 2)
     const float* __restrict__ conic,  // (F, N, 3)
     const float* __restrict__ opac,   // (F, N)
     const float* __restrict__ color,  // (F, N, 3)
     const int* __restrict__ sem,      // (N,) or null
+    float* __restrict__ rec,          // (F, E, kRec) out
+    int N, int E, int T, float color_max) {
+  const int f = blockIdx.y;
+  const int live = starts[(long long)f * (T + 1) + T];
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < live;
+       j += gridDim.x * blockDim.x) {
+    const int g = gid[(long long)f * E + j];
+    const long long gi = (long long)f * N + g;
+    float4* out = reinterpret_cast<float4*>(rec + ((long long)f * E + j) *
+                                                      kRec);
+    out[0] = make_float4(mean2d[gi * 2 + 0], mean2d[gi * 2 + 1],
+                         conic[gi * 3 + 0], conic[gi * 3 + 1]);
+    out[1] = make_float4(conic[gi * 3 + 2], opac[gi],
+                         fminf(fmaxf(color[gi * 3 + 0], 0.0f), color_max),
+                         fminf(fmaxf(color[gi * 3 + 1], 0.0f), color_max));
+    out[2] = make_float4(fminf(fmaxf(color[gi * 3 + 2], 0.0f), color_max),
+                         __int_as_float(sem ? sem[g] : -1),
+                         logf(fmaxf(opac[gi], 1e-12f)), 0.0f);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) composite_kernel(
+    const int* __restrict__ starts,   // (F, T + 1)
+    const float* __restrict__ rec,    // (F, E, kRec) sorted entries' records
     float* __restrict__ out_rgb,      // (F, H, W, 3)
     float* __restrict__ out_T,        // (F, H, W)
     int* __restrict__ out_seg,        // (F, H, W) or null
-    int N, int E, int T, int gx, int tile, int W, int H, float bg_r,
-    float bg_g, float bg_b, float color_max) {
-  __shared__ float s_mx[kBatch], s_my[kBatch];
-  __shared__ float s_A[kBatch], s_B[kBatch], s_C[kBatch], s_op[kBatch];
-  __shared__ float s_r[kBatch], s_g[kBatch], s_b[kBatch];
-  __shared__ int s_sem[kBatch];
+    int E, int T, int gx, int tile, int W, int H, float bg_r, float bg_g,
+    float bg_b, float log_alpha_min) {
+  __shared__ __align__(128) float s_rec[2][kBatch * kRec];
+  __shared__ __align__(8) uint64_t s_bar[2];
+  __shared__ int s_list[kBatch];
+  __shared__ int s_wlist[kWarps][kBatch];
+  __shared__ int s_wcount[kWarps];
 
-  const int t = blockIdx.x;
+  const SubTile st = sub_tile(gx, tile, W, H);
   const int f = blockIdx.y;
-  const int s = starts[(long long)f * (T + 1) + t];
-  const int e = starts[(long long)f * (T + 1) + t + 1];
-  const int tx0 = (t % gx) * tile;
-  const int ty0 = (t / gx) * tile;
+  const int s = starts[(long long)f * (T + 1) + st.t];
+  const int e = starts[(long long)f * (T + 1) + st.t + 1];
+  const float* rec_f = rec + (long long)f * E * kRec;
 
-  float px[kPix], py[kPix], Tr[kPix], cr[kPix], cg[kPix], cb[kPix];
-  float best_w[kPix];
-  int best_sem[kPix];
-  bool done[kPix];
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const int x = tx0 + p % tile;
-    const int y = ty0 + p / tile;
-    px[k] = (float)x;
-    py[k] = (float)y;
-    done[k] = !(p < tile * tile && x < W && y < H);
-    Tr[k] = 1.0f;
-    cr[k] = cg[k] = cb[k] = 0.0f;
-    best_w[k] = 0.0f;
-    best_sem[k] = -1;
+  const float px = (float)st.x, py = (float)st.y;
+  bool done = !st.valid;
+  float Tr = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, best_w = 0.0f;
+  int best_sem = -1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&s_bar[0]);
+    mbar_init(&s_bar[1]);
   }
+  __syncthreads();
+  if (threadIdx.x == 0 && s < e)
+    bulk_load(s_rec[0], rec_f + (long long)s * kRec,
+              min(kBatch, e - s) * kRec * 4, &s_bar[0]);
 
-  const long long fN = (long long)f * N;
   const float alpha_min = 1.0f / 255.0f;
-  for (int base = s; base < e; base += kBatch) {
-    bool mine = true;
-#pragma unroll
-    for (int k = 0; k < kPix; ++k) mine = mine && done[k];
-    // also the barrier that frees the previous batch's shared records
-    if (__syncthreads_count(mine) == kThreads) break;
-    const int j = base + threadIdx.x;
-    if (j < e) {
-      const int g = gid[(long long)f * E + j];
-      const long long gi = fN + g;
-      s_mx[threadIdx.x] = mean2d[gi * 2 + 0];
-      s_my[threadIdx.x] = mean2d[gi * 2 + 1];
-      s_A[threadIdx.x] = conic[gi * 3 + 0];
-      s_B[threadIdx.x] = conic[gi * 3 + 1];
-      s_C[threadIdx.x] = conic[gi * 3 + 2];
-      s_op[threadIdx.x] = opac[gi];
-      s_r[threadIdx.x] = fminf(fmaxf(color[gi * 3 + 0], 0.0f), color_max);
-      s_g[threadIdx.x] = fminf(fmaxf(color[gi * 3 + 1], 0.0f), color_max);
-      s_b[threadIdx.x] = fminf(fmaxf(color[gi * 3 + 2], 0.0f), color_max);
-      s_sem[threadIdx.x] = sem ? sem[g] : -1;
+  int k = 0;
+  for (int base = s; base < e; base += kBatch, ++k) {
+    const int buf = k & 1;
+    const uint32_t parity = (k >> 1) & 1;
+    // also the barrier after which the other buffer and the list are free
+    if (__syncthreads_count(done) == kThreads) {
+      if (threadIdx.x == 0) mbar_wait(&s_bar[buf], parity);  // drain
+      break;
     }
-    __syncthreads();
-    const int n = min(kBatch, e - base);
-    for (int i = 0; i < n; ++i) {
-      const float mx = s_mx[i], my = s_my[i];
-      const float A = s_A[i], B = s_B[i], C = s_C[i], op = s_op[i];
-#pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        if (done[k]) continue;
-        const float dx = mx - px[k];
-        const float dy = my - py[k];
-        const float power = -0.5f * (A * dx * dx + C * dy * dy) - B * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(0.99f, op * expf(power));
-        if (alpha < alpha_min) continue;
-        const float test_T = Tr[k] * (1.0f - alpha);
-        if (test_T < 1e-4f) {
-          done[k] = true;
-          continue;
-        }
-        const float w = alpha * Tr[k];
-        cr[k] += w * s_r[i];
-        cg[k] += w * s_g[i];
-        cb[k] += w * s_b[i];
-        if (w > best_w[k] || (w == best_w[k] && s_sem[i] > best_sem[k])) {
-          best_w[k] = w;
-          best_sem[k] = s_sem[i];
-        }
-        Tr[k] = test_T;
+    if (threadIdx.x == 0 && base + kBatch < e)
+      bulk_load(s_rec[buf ^ 1], rec_f + (long long)(base + kBatch) * kRec,
+                min(kBatch, e - base - kBatch) * kRec * 4, &s_bar[buf ^ 1]);
+    mbar_wait(&s_bar[buf], parity);
+    const float* recs = s_rec[buf];
+    const int m = cull_batch(recs, min(kBatch, e - base), st, log_alpha_min,
+                             s_list, s_wcount);
+    int* wlist = s_wlist[threadIdx.x >> 5];
+    const int wm = cull_warp(recs, s_list, m, st, log_alpha_min, wlist);
+    for (int j = 0; j < wm && !done; ++j) {
+      const Rec r = load_rec(recs + s_list[wlist[j]] * kRec);
+      const float dx = r.mx - px;
+      const float dy = r.my - py;
+      const float power = -0.5f * (r.A * dx * dx + r.C * dy * dy) -
+                          r.B * dx * dy;
+      if (power > 0.0f) continue;
+      const float alpha = fminf(0.99f, r.op * expf(power));
+      if (alpha < alpha_min) continue;
+      const float test_T = Tr * (1.0f - alpha);
+      if (test_T < 1e-4f) {
+        done = true;
+        continue;
       }
+      const float w = alpha * Tr;
+      cr += w * r.r;
+      cg += w * r.g;
+      cb += w * r.b;
+      if (w > best_w || (w == best_w && r.sem > best_sem)) {
+        best_w = w;
+        best_sem = r.sem;
+      }
+      Tr = test_T;
     }
   }
 
-#pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const int x = tx0 + p % tile;
-    const int y = ty0 + p / tile;
-    if (p >= tile * tile || x >= W || y >= H) continue;
-    const long long idx = ((long long)f * H + y) * W + x;
-    out_rgb[idx * 3 + 0] = cr[k] + Tr[k] * bg_r;
-    out_rgb[idx * 3 + 1] = cg[k] + Tr[k] * bg_g;
-    out_rgb[idx * 3 + 2] = cb[k] + Tr[k] * bg_b;
-    out_T[idx] = Tr[k];
-    if (out_seg) out_seg[idx] = best_w[k] > 1e-4f ? best_sem[k] : -1;
-  }
+  if (!st.valid) return;
+  const long long idx = ((long long)f * H + st.y) * W + st.x;
+  out_rgb[idx * 3 + 0] = cr + Tr * bg_r;
+  out_rgb[idx * 3 + 1] = cg + Tr * bg_g;
+  out_rgb[idx * 3 + 2] = cb + Tr * bg_b;
+  out_T[idx] = Tr;
+  if (out_seg) out_seg[idx] = best_w > 1e-4f ? best_sem : -1;
 }
 
 }  // namespace
@@ -157,15 +180,21 @@ __global__ void __launch_bounds__(kThreads) composite_kernel(
 extern "C" int gsw_composite_tiles(
     const void* starts, const void* gid, const void* mean2d,
     const void* conic, const void* opac, const void* color, const void* sem,
-    void* out_rgb, void* out_T, void* out_seg, int F, int N, int E, int T,
-    int gx, int tile, int W, int H, float bg_r, float bg_g, float bg_b,
-    float color_max, void* stream) {
-  if (tile * tile > kThreads * kPix) return (int)cudaErrorInvalidValue;
-  const dim3 grid(T, F);
-  composite_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    void* rec, void* out_rgb, void* out_T, void* out_seg, int F, int N,
+    int E, int T, int gx, int tile, int W, int H, float bg_r, float bg_g,
+    float bg_b, float color_max, float log_alpha_min, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int want = (E + gsw::kThreads - 1) / gsw::kThreads;
+  const dim3 pack_grid(want < 1024 ? (want > 0 ? want : 1) : 1024, F);
+  pack_records_kernel<<<pack_grid, gsw::kThreads, 0, st>>>(
       (const int*)starts, (const int*)gid, (const float*)mean2d,
       (const float*)conic, (const float*)opac, (const float*)color,
-      (const int*)sem, (float*)out_rgb, (float*)out_T, (int*)out_seg, N, E,
-      T, gx, tile, W, H, bg_r, bg_g, bg_b, color_max);
+      (const int*)sem, (float*)rec, N, E, T, color_max);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(gsw::blocks_per_frame(T, tile), F);
+  composite_kernel<<<grid, gsw::kThreads, 0, st>>>(
+      (const int*)starts, (const float*)rec, (float*)out_rgb, (float*)out_T,
+      (int*)out_seg, E, T, gx, tile, W, H, bg_r, bg_g, bg_b, log_alpha_min);
   return (int)cudaGetLastError();
 }

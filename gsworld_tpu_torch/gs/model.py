@@ -96,7 +96,7 @@ def build_slot_ids(
 
 
 def scene_from_numpy(fields: Mapping[str, np.ndarray],
-                     device="cpu") -> GaussianScene:
+                     device="cuda") -> GaussianScene:
     """Scene from numpy arrays keyed by the GaussianScene field names
     (e.g. ``np.asarray`` of each field of a JAX scene), so both packages
     render the same weights."""
@@ -123,7 +123,7 @@ def scene_from_numpy(fields: Mapping[str, np.ndarray],
 
 def scene_from_splats(splats: Dict[str, np.ndarray],
                       slot_ids: Optional[np.ndarray] = None,
-                      device="cpu") -> GaussianScene:
+                      device="cuda") -> GaussianScene:
     """Scene from a splat dict (PLY layout keys, as gs/synthetic.py makes)."""
     n = splats["means"].shape[0]
     if slot_ids is None:

@@ -39,7 +39,7 @@ def rgb_to_sh0(rgb: np.ndarray) -> np.ndarray:
 
 def create_from_pcd(points: np.ndarray, colors: Optional[np.ndarray] = None,
                     semantics: Optional[np.ndarray] = None,
-                    device="cpu") -> GaussianScene:
+                    device="cuda") -> GaussianScene:
     """Scene from sparse points and optional RGB, in [0, 1] or uint8-range
     (any value above 1 means the colours are divided by 255)."""
     points = np.asarray(points, np.float32)

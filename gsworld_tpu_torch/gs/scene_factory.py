@@ -129,7 +129,7 @@ def get_scene(cfg_name: str, model, scan_qpos, object_names,
               synthetic_seed: int = 0,
               synthetic_sizes: Optional[dict] = None,
               surface_points: Optional[Dict[str, np.ndarray]] = None,
-              device="cpu") -> Tuple[GaussianScene, SlotLayout]:
+              device="cuda") -> Tuple[GaussianScene, SlotLayout]:
     """(scene, layout) of the synthetic stand-in for ``cfg_name``.
 
     Raises NotImplementedError when ``configs/<cfg_name>.json`` resolves

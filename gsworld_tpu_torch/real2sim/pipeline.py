@@ -31,7 +31,7 @@ def train_from_colmap_model(points_xyz: np.ndarray,
                             params: Optional[OptimizationParams] = None,
                             iterations: Optional[int] = None,
                             capacity: Optional[int] = None,
-                            seed: int = 0, device="cpu",
+                            seed: int = 0, device="cuda",
                             callback: Optional[Callable] = None
                             ) -> Tuple[GaussianScene, List[float]]:
     """create_from_pcd -> train on ``device``.  Images are (H, W, 3) in

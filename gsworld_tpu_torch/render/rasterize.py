@@ -10,9 +10,10 @@ cost nothing when no profiler runs.
 
 Without semantics the render is differentiable with respect to the
 projected floats through :class:`CompositeFunction` (forward: the
-compositor; backward: the backward kernel, then a scatter-add per
-Gaussian).  Binning is integer plumbing and runs on detached tensors, as
-the JAX package's ``stop_gradient`` does; the segmentation path is not
+compositor, which also returns the sorted entries' records; backward: the
+backward kernel on those records, then a scatter-add per Gaussian).
+Binning is integer plumbing and runs on detached tensors, as the JAX
+package's ``stop_gradient`` does; the segmentation path is not
 differentiable.
 """
 
@@ -43,24 +44,24 @@ class CompositeFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, color, starts, gaussian,
                 cfg: RasterConfig):
-        img, T_img, _ = composite_tiles(
+        img, T_img, _, records = composite_tiles(
             starts, gaussian, mean2d, conic, opacity, color, None,
             width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
         ctx.cfg = cfg
         ctx.save_for_backward(mean2d, conic, opacity, color, starts,
-                              gaussian, img, T_img)
+                              gaussian, img, T_img, records)
         return img, T_img
 
     @staticmethod
     def backward(ctx, img_ct, T_ct):
-        mean2d, conic, opacity, color, starts, gaussian, img, T_img = (
-            ctx.saved_tensors)
+        (mean2d, conic, opacity, color, starts, gaussian, img, T_img,
+         records) = ctx.saved_tensors
         cfg = ctx.cfg
         with record_function("gsw.composite_bwd"):
             rows = composite_bwd(
                 starts, gaussian, mean2d, conic, opacity, color, img, T_img,
                 img_ct.contiguous(), T_ct.contiguous(), width=cfg.width,
-                height=cfg.height, tile=cfg.tile)
+                height=cfg.height, tile=cfg.tile, records=records)
             acc = scatter_entry_rows(rows, gaussian, opacity.shape[1])
         return (acc[..., 0:2], acc[..., 2:5], acc[..., 8], acc[..., 5:8],
                 None, None, None)
@@ -94,7 +95,7 @@ def render_projected(flat: Projected, cfg: RasterConfig, semantics=None):
                 bins.starts, bins.gaussian, cfg)
             return img, T_img, None, bins
         with torch.no_grad():
-            img, T_img, seg = composite_tiles(
+            img, T_img, seg, _ = composite_tiles(
                 bins.starts, bins.gaussian, flat.mean2d, flat.conic,
                 flat.opacity, flat.color,
                 semantics.to(torch.int32).contiguous(),

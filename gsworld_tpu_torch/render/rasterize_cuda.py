@@ -14,9 +14,9 @@ Nothing on the CUDA path falls back to the plain version.
 
 Build: at first use the sources in ``csrc/`` are compiled with ``nvcc``
 for ``sm_90a`` into one shared library with a plain C interface under
-``_build/`` (listed in .gitignore), named by a hash of the sources and
-flags, and bound with ctypes.  Each C entry returns ``cudaGetLastError()``
-after its launch.
+``_build/`` (listed in .gitignore), named by a hash of the sources, the
+headers and the flags, and bound with ctypes.  Each C entry returns
+``cudaGetLastError()`` after its launches.
 """
 
 from __future__ import annotations
@@ -76,20 +76,22 @@ def _nvcc() -> str:
     return path
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Compile (if not already built) and load the kernel library."""
-    if _Library.lib is not None:
-        return _Library.lib
+def compile_library(sources) -> Path:
+    """Compile the CUDA ``sources`` (paths; headers beside them) with
+    NVCC_FLAGS into one shared library under ``_build/``, unless a build
+    of the same sources, headers and flags is there.  -> its path."""
+    sources = [Path(p) for p in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC_DIR / name).read_bytes())
+    for path in sources + sorted({q for p in sources
+                                  for q in p.parent.glob("*.cuh")}):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     so_path = BUILD_DIR / f"libgsw_kernels_{h.hexdigest()[:16]}.so"
     if not so_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(CSRC_DIR / n) for n in SOURCES]]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         _Library.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -97,13 +99,20 @@ def build_kernels() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                + _Library.build_log)
         os.replace(tmp, so_path)
-    lib = ctypes.CDLL(str(so_path))
+    return so_path
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Compile (if not already built) and load the kernel library."""
+    if _Library.lib is not None:
+        return _Library.lib
+    lib = ctypes.CDLL(str(compile_library([CSRC_DIR / n for n in SOURCES])))
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gsw_emit_entries.argtypes = [P] * 11 + [I] * 7 + [Fl, P]
     lib.gsw_emit_entries.restype = I
-    lib.gsw_composite_tiles.argtypes = [P] * 10 + [I] * 8 + [Fl] * 4 + [P]
+    lib.gsw_composite_tiles.argtypes = [P] * 11 + [I] * 8 + [Fl] * 5 + [P]
     lib.gsw_composite_tiles.restype = I
-    lib.gsw_composite_bwd.argtypes = [P] * 11 + [I] * 8 + [Fl, P]
+    lib.gsw_composite_bwd.argtypes = [P] * 7 + [I] * 7 + [Fl, P]
     lib.gsw_composite_bwd.restype = I
     lib.gsw_error_string.argtypes = [I]
     lib.gsw_error_string.restype = ctypes.c_char_p
@@ -332,8 +341,8 @@ def _chunk_splats(c0, s, e, gaussian, m2, cn, op_all, px, py):
     alpha = torch.clamp_max(op * G, ALPHA_MAX)
     contrib = inseg[:, :, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
     a = torch.where(contrib, alpha, torch.zeros_like(alpha))
-    return j, inseg, gi, dict(dx=dx, dy=dy, A=A, B=B, C=C, G=G, alpha=alpha,
-                              contrib=contrib, a=a)
+    return j, inseg, gi, dict(dx=dx, dy=dy, A=A, B=B, C=C, power=power, G=G,
+                              alpha=alpha, contrib=contrib, a=a)
 
 
 def _transmit(Tr, done, a):
@@ -408,6 +417,113 @@ def composite_tiles_reference(starts, gaussian, mean2d, conic, opacity,
         seg.contiguous() if seg is not None else None)
 
 
+def walk_counts(starts, gaussian, mean2d, conic, opacity, *, width: int,
+                height: int, tile: int):
+    """What the front-to-back walk of the compositors does per pixel, in
+    the plain compositor's own chunk steps: ``walked`` entries of the
+    pixel's tile tested, up to and including the one where the pixel
+    stops (or to the tile's end); ``exps`` of them with power <= 0 (an
+    exp evaluated); ``blended`` of them that pass the alpha test before
+    the stop (the forward's blend, the backward's gradient terms).
+    Returns a dict of (F, H, W) int64 tensors.  The work of both
+    compositor kernels on these inputs, for their bounds."""
+    F, N = opacity.shape
+    T = starts.shape[1] - 1
+    gx = -(-width // tile)
+    gy = -(-height // tile)
+    dev, dt = mean2d.device, mean2d.dtype
+    P = tile * tile
+    px, py, outside = _tile_pixels(T, gx, tile, width, height, dev, dt)
+    s = starts[:, :T].long()
+    e = starts[:, 1:].long()
+    Tr = torch.ones((F, T, P), dtype=dt, device=dev)
+    done = outside[None].expand(F, T, P).clone()
+    m2 = mean2d.reshape(F * N, 2)
+    cn = conic.reshape(F * N, 3)
+    op_all = opacity.reshape(F * N)
+    counts = {k: torch.zeros((F, T, P), dtype=torch.int64, device=dev)
+              for k in ("walked", "exps", "blended")}
+    maxlen = int((e - s).max()) if T > 0 else 0
+    for c0 in range(0, maxlen, PLAIN_CHUNK):
+        _, inseg, _, sp = _chunk_splats(c0, s, e, gaussian, m2, cn, op_all,
+                                        px, py)
+        _, stop, Tr_next, done_next = _transmit(Tr, done, sp["a"])
+        stopped_before = torch.cat([done[..., None], stop[..., :-1]], dim=-1)
+        tested = inseg[:, :, None, :] & ~stopped_before
+        counts["walked"] += tested.sum(dim=-1)
+        counts["exps"] += (tested & (sp["power"] <= 0.0)).sum(dim=-1)
+        counts["blended"] += (sp["contrib"] & ~stop).sum(dim=-1)
+        Tr, done = Tr_next, done_next
+        if bool(done.all()):
+            break
+    return {k: _tiles_to_image(v, F, gy, gx, tile, height, width).contiguous()
+            for k, v in counts.items()}
+
+
+RECORD_FIELDS = 12  # per sorted entry: mx, my, A, B, C, opacity, r, g, b
+#                    (clamped to [0, COLOR_MAX]), the semantic id's bits
+#                    (-1 without semantics), log(max(opacity, 1e-12)) for
+#                    the cull, a zero pad: 48 bytes
+SUB_TILE = 16       # the kernels' sub-tile side (csrc/composite_common.cuh)
+CULL_ABS = 1e-3     # their cull margin, in log alpha: absolute part
+CULL_REL = 4e-6     # and the part relative to the exponent's terms
+
+
+def pack_records_reference(starts, gaussian, mean2d, conic, opacity, color,
+                           semantics):
+    """Plain PyTorch version of the compositors' record gather: (F, E,
+    RECORD_FIELDS) f32, the records of entries [0, starts[f, T]) of each
+    frame in sorted order, zero beyond."""
+    F, N = opacity.shape
+    E = gaussian.shape[1]
+    dev = mean2d.device
+    live = torch.arange(E, device=dev)[None, :] < starts[:, -1:].long()
+    g = torch.where(live, gaussian.long(), torch.zeros_like(gaussian.long()))
+    gi = ((torch.arange(F, device=dev) * N)[:, None] + g).reshape(-1)
+    sem = (semantics.to(torch.int32)[g.reshape(-1)] if semantics is not None
+           else torch.full((F * E,), -1, dtype=torch.int32, device=dev))
+    rec = torch.cat([
+        mean2d.reshape(-1, 2)[gi], conic.reshape(-1, 3)[gi],
+        opacity.reshape(-1, 1)[gi],
+        color.reshape(-1, 3)[gi].clamp(0.0, COLOR_MAX),
+        sem.view(torch.float32)[:, None],
+        torch.log(opacity.reshape(-1, 1)[gi].clamp_min(1e-12)),
+        torch.zeros((F * E, 1), dtype=torch.float32, device=dev)], dim=1)
+    return torch.where(live.reshape(-1, 1), rec,
+                       torch.zeros_like(rec)).reshape(F, E, RECORD_FIELDS)
+
+
+def subtile_keep_reference(rec, x0, x1, y0, y1):
+    """Plain PyTorch copy of the kernels' sub-tile cull
+    (composite_common.cuh:subtile_keep), in its f32 order: whether each
+    record (..., RECORD_FIELDS) may reach alpha >= 1/255 at some pixel of
+    the box [x0, x1] x [y0, y1] (broadcast against the records).  False
+    only when no pixel of the box accepts it."""
+    mx, my, A, B, C = rec[..., :5].unbind(-1)
+    lop = rec[..., 10]
+    f32 = dict(dtype=torch.float32, device=rec.device)
+    x0, x1, y0, y1 = (torch.as_tensor(v, **f32) for v in (x0, x1, y0, y1))
+    bounded = (A > 0.0) & (C > 0.0) & (A * C - B * B > 0.0)
+    dx0, dx1, dy0, dy1 = x0 - mx, x1 - mx, y0 - my, y1 - my
+    inside = (dx0 <= 0.0) & (dx1 >= 0.0) & (dy0 <= 0.0) & (dy1 >= 0.0)
+
+    def q(ddx, ddy):
+        return -0.5 * (A * ddx * ddx + C * ddy * ddy) - B * ddx * ddy
+
+    iA, iC = 1.0 / A, 1.0 / C
+    ex0 = q(dx0, torch.minimum(torch.maximum(-B * dx0 * iC, dy0), dy1))
+    ex1 = q(dx1, torch.minimum(torch.maximum(-B * dx1 * iC, dy0), dy1))
+    ey0 = q(torch.minimum(torch.maximum(-B * dy0 * iA, dx0), dx1), dy0)
+    ey1 = q(torch.minimum(torch.maximum(-B * dy1 * iA, dx0), dx1), dy1)
+    pmax = torch.where(inside, torch.zeros_like(ex0), torch.maximum(
+        torch.maximum(ex0, ex1), torch.maximum(ey0, ey1)))
+    ax = torch.maximum(dx0.abs(), dx1.abs())
+    ay = torch.maximum(dy0.abs(), dy1.abs())
+    M = A * ax * ax + C * ay * ay + 2.0 * B.abs() * ax * ay
+    culled = pmax + lop < LOG_ALPHA_MIN - (CULL_ABS + CULL_REL * M)
+    return ~bounded | ~culled
+
+
 def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
                     semantics, *, width: int, height: int, tile: int, bg):
     """Front-to-back alpha compositing of the sorted entry stream.
@@ -416,11 +532,16 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
     ``gaussian`` (F, E) int32 sorted entries' Gaussian ids; ``mean2d``
     (F, N, 2), ``conic`` (F, N, 3), ``opacity`` (F, N), ``color`` (F, N, 3)
     f32; ``semantics`` (N,) int32 or None.
-    Returns (img (F, H, W, 3), T (F, H, W), seg (F, H, W) int32 or None)."""
+    Returns (img (F, H, W, 3), T (F, H, W), seg (F, H, W) int32 or None,
+    records (F, E, RECORD_FIELDS)): the sorted entries' records that the
+    kernel walked, which :func:`composite_bwd` takes to read the same
+    rows."""
     if mean2d.device.type == "cpu":
         return composite_tiles_reference(
             starts, gaussian, mean2d, conic, opacity, color, semantics,
-            width=width, height=height, tile=tile, bg=bg)
+            width=width, height=height, tile=tile, bg=bg) + (
+                pack_records_reference(starts, gaussian, mean2d, conic,
+                                       opacity, color, semantics),)
     dev = _cuda_device(mean2d, "composite_tiles")
     F, N = opacity.shape
     T = starts.shape[1] - 1
@@ -429,8 +550,6 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
     if T != gx * (-(-height // tile)):
         raise ValueError(f"starts has {T} tiles, expected "
                          f"{gx * (-(-height // tile))}")
-    if tile * tile > 1024:
-        raise ValueError("composite kernel supports tiles up to 32x32")
     i32, f32 = torch.int32, torch.float32
     for name, t, dt, shp in (
             ("starts", starts, i32, (F, T + 1)),
@@ -443,6 +562,7 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
     if semantics is not None:
         _require(semantics, "semantics", i32, (N,), dev)
     lib = build_kernels()
+    rec = torch.empty((F, E, RECORD_FIELDS), dtype=f32, device=dev)
     img = torch.empty((F, height, width, 3), dtype=f32, device=dev)
     T_img = torch.empty((F, height, width), dtype=f32, device=dev)
     seg = (torch.empty((F, height, width), dtype=i32, device=dev)
@@ -452,13 +572,14 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
         starts.data_ptr(), gaussian.data_ptr(), mean2d.data_ptr(),
         conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
         semantics.data_ptr() if semantics is not None else None,
-        img.data_ptr(), T_img.data_ptr(),
+        rec.data_ptr(), img.data_ptr(), T_img.data_ptr(),
         seg.data_ptr() if seg is not None else None,
         F, N, E, T, gx, tile, width, height,
-        float(bg[0]), float(bg[1]), float(bg[2]), COLOR_MAX, stream)
+        float(bg[0]), float(bg[1]), float(bg[2]), COLOR_MAX, LOG_ALPHA_MIN,
+        stream)
     _check(lib, rc, "composite_tiles")
     launch_counts["composite_tiles"] += 1
-    return img, T_img, seg
+    return img, T_img, seg, rec
 
 
 # --------------------------------------------------------------------- #
@@ -551,14 +672,17 @@ def composite_bwd_reference(starts, gaussian, mean2d, conic, opacity, color,
 
 
 def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
-                  T_img, img_ct, T_ct, *, width: int, height: int, tile: int):
+                  T_img, img_ct, T_ct, *, width: int, height: int, tile: int,
+                  records):
     """Gradients of the compositor per sorted entry.
 
     Args: the compositor's inputs (``starts`` (F, T+1) int32, ``gaussian``
     (F, E) int32, ``mean2d`` (F, N, 2), ``conic`` (F, N, 3), ``opacity``
     (F, N), ``color`` (F, N, 3)), its outputs ``img`` (F, H, W, 3) and
     ``T_img`` (F, H, W), and their cotangents ``img_ct``, ``T_ct`` of the
-    same shapes.
+    same shapes; ``records``, the fourth output of :func:`composite_tiles`
+    (the kernel reads the entries from them; the plain version ignores
+    them).
     Returns (F, E, 9) rows [d mean2d (2), d conic (3), d colour (3),
     d opacity] per sorted entry, zero beyond the live segments; the
     per-Gaussian gradient is their scatter-add by ``gaussian``."""
@@ -574,8 +698,6 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
     if T != gx * (-(-height // tile)):
         raise ValueError(f"starts has {T} tiles, expected "
                          f"{gx * (-(-height // tile))}")
-    if tile * tile > 1024:
-        raise ValueError("composite_bwd kernel supports tiles up to 32x32")
     i32, f32 = torch.int32, torch.float32
     for name, t, dt, shp in (
             ("starts", starts, i32, (F, T + 1)),
@@ -589,15 +711,14 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
             ("img_ct", img_ct, f32, (F, height, width, 3)),
             ("T_ct", T_ct, f32, (F, height, width))):
         _require(t, name, dt, shp, dev)
+    _require(records, "records", f32, (F, E, RECORD_FIELDS), dev)
     lib = build_kernels()
     out = torch.zeros((F, E, BWD_FIELDS), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.gsw_composite_bwd(
-        starts.data_ptr(), gaussian.data_ptr(), mean2d.data_ptr(),
-        conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
-        img.data_ptr(), T_img.data_ptr(), img_ct.data_ptr(),
-        T_ct.data_ptr(), out.data_ptr(), F, N, E, T, gx, tile, width,
-        height, COLOR_MAX, stream)
+        starts.data_ptr(), records.data_ptr(), img.data_ptr(),
+        T_img.data_ptr(), img_ct.data_ptr(), T_ct.data_ptr(), out.data_ptr(),
+        F, E, T, gx, tile, width, height, LOG_ALPHA_MIN, stream)
     _check(lib, rc, "composite_bwd")
     launch_counts["composite_bwd"] += 1
     return out

@@ -50,7 +50,7 @@ class GSWorldRenderer:
                  synthetic_sizes: Optional[dict] = None,
                  asset_dir: Optional[str] = None,
                  cfg_dir: Optional[str] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.env = env
         self.device = torch.device(device)
         model = env.agent.model

@@ -40,7 +40,8 @@ def pair():
             names=env.actor_names)),
         actor_index=env.actor_index, cameras=[])
     jw = GSWorldWrapper(fake, "fr3_align", synthetic_sizes=SIZES)
-    tw = GSWorldRenderer(env, "fr3_align", synthetic_sizes=SIZES)
+    tw = GSWorldRenderer(env, "fr3_align", synthetic_sizes=SIZES,
+                         device="cpu")
     return jw, tw
 
 
@@ -77,7 +78,7 @@ class TestScene:
     def test_scene_from_numpy_carries_jax_weights(self, pair):
         jw, _ = pair
         scene = scene_from_numpy({f: np.asarray(getattr(jw.scene, f))
-                                  for f in SCENE_FIELDS})
+                                  for f in SCENE_FIELDS}, device="cpu")
         for f in SCENE_FIELDS:
             np.testing.assert_array_equal(getattr(scene, f).numpy(),
                                           np.asarray(getattr(jw.scene, f)))
@@ -94,7 +95,7 @@ class TestScene:
                   object_names=[], link_names=list(model.link_names),
                   cfg_dir=str(cfg_dir), asset_dir=str(asset_dir),
                   synthetic_sizes=dict(n_background=10, n_per_link=2,
-                                       n_per_object=2))
+                                       n_per_object=2), device="cpu")
         with pytest.raises(NotImplementedError, match="real GS scans"):
             get_scene("fr3_test", **kw)
         (asset_dir / "scene" / "robot.ply").unlink()

@@ -274,7 +274,7 @@ class TestCompositor:
                                             interpret=True)
         tp = _proj_from_jax(jp)
         tb = _bin1(tp, cfg)
-        ti, tt, ts = rasterize_cuda.composite_tiles(
+        ti, tt, ts, _ = rasterize_cuda.composite_tiles(
             tb.starts[None], tb.gaussian[None], tp.mean2d[None],
             tp.conic[None], tp.opacity[None], tp.color[None],
             torch.as_tensor(sem), width=cfg.width, height=cfg.height,

@@ -87,7 +87,7 @@ def test_slice_matches_jax_wrapper():
     tenv.cameras = _resize(tenv.cameras)
     tw = GSWorldRenderer(tenv, "fr3_align",
                          raster_config=RasterConfig(**RASTER),
-                         synthetic_sizes=SIZES)
+                         synthetic_sizes=SIZES, device="cpu")
     out = tw.render(EnvPoses(qpos=torch.as_tensor(q),
                              a_pos=torch.as_tensor(a_pos),
                              a_quat=torch.as_tensor(a_quat)))
@@ -130,7 +130,8 @@ def test_port_renders_without_jax():
                             raster_config=RasterConfig(width=64, height=48),
                             synthetic_sizes=dict(n_background=300,
                                                  n_per_link=20,
-                                                 n_per_object=20))
+                                                 n_per_object=20),
+                            device="cpu")
         q = torch.as_tensor(constants.fr3_umi_task_init_qpos)[None]
         out = r.render(EnvPoses(qpos=q, a_pos=torch.zeros(1, 3, 3),
                                 a_quat=torch.tensor([[[1.0, 0, 0, 0]] * 3])))
@@ -153,4 +154,19 @@ def test_renderer_refuses_mixed_camera_sizes():
     with pytest.raises(ValueError, match="share one size"):
         GSWorldRenderer(env, "fr3_align",
                         synthetic_sizes=dict(n_background=10, n_per_link=2,
-                                             n_per_object=2))
+                                             n_per_object=2), device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU, as every CPU test here does with device="cpu"."""
+    import inspect
+
+    from gsworld_tpu_torch.gs.model import scene_from_numpy, scene_from_splats
+    from gsworld_tpu_torch.gs.pcd_init import create_from_pcd
+    from gsworld_tpu_torch.gs.scene_factory import get_scene
+    from gsworld_tpu_torch.real2sim.pipeline import train_from_colmap_model
+    for fn in (GSWorldRenderer, train_from_colmap_model, get_scene,
+               create_from_pcd, scene_from_numpy, scene_from_splats):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", (fn.__name__, default)

@@ -139,7 +139,7 @@ class TestOptim:
         jsc = _jscene(fields)
         tx = joptim.make_optimizer(params)
         opt = tx.init(jsc)
-        scene = scene_from_numpy(fields)
+        scene = scene_from_numpy(fields, device="cpu")
         state = adam_init(scene)
         lrs = learning_rates(params)
         rng = np.random.default_rng(2)
@@ -185,7 +185,8 @@ class TestDensify:
     def test_pad_scene_capacity_matches_jax(self):
         fields = _fields(j_scene_from_splats(_splats(20, 5)))
         want = _fields(jdensify.pad_scene_capacity(_jscene(fields), 32))
-        got = densify.pad_scene_capacity(scene_from_numpy(fields), 32)
+        got = densify.pad_scene_capacity(
+            scene_from_numpy(fields, device="cpu"), 32)
         _assert_fields(got, want, 0.0)
 
     @pytest.mark.parametrize("max_screen_size", [0.0, 5.0])
@@ -204,7 +205,8 @@ class TestDensify:
         ds = densify.DensifyState(**{k: torch.as_tensor(v)
                                      for k, v in dsf.items()})
         sc2, ds2, changed = densify.densify_and_prune(
-            scene_from_numpy(_fields(jsc)), ds, noise=torch.as_tensor(noise),
+            scene_from_numpy(_fields(jsc), device="cpu"), ds,
+            noise=torch.as_tensor(noise),
             max_screen_size=max_screen_size)
         assert np.array_equal(ds2.alive.numpy(), np.asarray(jds2.alive))
         assert np.array_equal(changed.numpy(), np.asarray(jchanged))
@@ -219,7 +221,7 @@ class TestDensify:
         ds = densify.DensifyState(**{k: torch.as_tensor(v)
                                      for k, v in dsf.items()})
         runs = [densify.densify_and_prune(
-            scene_from_numpy(_fields(jsc)), ds,
+            scene_from_numpy(_fields(jsc), device="cpu"), ds,
             torch.Generator().manual_seed(s))[0].means for s in (0, 0, 1)]
         assert torch.equal(runs[0], runs[1])
         assert not torch.equal(runs[0], runs[2])
@@ -227,7 +229,7 @@ class TestDensify:
     def test_reset_opacity_matches_jax(self):
         fields = _fields(j_scene_from_splats(_splats(30, 6)))
         want = _fields(jdensify.reset_opacity(_jscene(fields)))
-        got = densify.reset_opacity(scene_from_numpy(fields))
+        got = densify.reset_opacity(scene_from_numpy(fields, device="cpu"))
         _assert_fields(got, want, 0.0)
 
 
@@ -238,7 +240,7 @@ def test_create_from_pcd_matches_jax():
     for cols, s in ((rng.uniform(0, 1, (64, 3)).astype(np.float32), None),
                     (np.full((64, 3), 128, np.uint8), sem), (None, None)):
         want = _fields(jpcd.create_from_pcd(pts, cols, s))
-        got = create_from_pcd(pts, cols, s)
+        got = create_from_pcd(pts, cols, s, device="cpu")
         _assert_fields(got, want, 1e-7)
     splats = scene_to_splats(got)
     assert splats["sh0"].shape == (64, 3, 1)
@@ -276,7 +278,8 @@ def test_train_step_matches_jax():
     jstate, jl, _ = jtrain.make_train_step(jcfg, params, tx)(
         jstate, jcam, jnp.asarray(target))
 
-    sc = densify.pad_scene_capacity(scene_from_numpy(start), 128)
+    sc = densify.pad_scene_capacity(scene_from_numpy(start, device="cpu"),
+                                    128)
     state = TrainState(scene=sc, ds=densify.init_densify_state(128, 120),
                        opt_state=adam_init(sc), step=0)
     state, loss, img = make_train_step(cfg, params)(
@@ -304,7 +307,7 @@ def test_holdout_psnr():
     splats = jsynthetic.make_blob(rng, n, [0, 0, 0], 0.35, [0.7, 0.3, 0.2],
                                   0, log_scale_mean=-2.6)
     from gsworld_tpu_torch.gs.model import scene_from_splats
-    truth = scene_from_splats(splats)
+    truth = scene_from_splats(splats, device="cpu")
     cams = [_cam((i / 4 - 0.5) * 1.2)[1] for i in range(5)]
     with torch.no_grad():
         imgs = [render_trainable(truth, torch.zeros(n, 2), c, cfg)[0]
@@ -319,7 +322,8 @@ def test_holdout_psnr():
     scene, losses = train_from_colmap_model(
         pts, cols, [c for i, c in enumerate(cams) if i != hold],
         [im for i, im in enumerate(imgs) if i != hold], cfg, params=params,
-        iterations=320, capacity=2 * n, seed=0)
+        iterations=320, capacity=2 * n, seed=0,
+        device="cpu")
     assert losses[-1] < losses[0] * 0.5, (losses[0], losses[-1])
     assert n < scene.num_gaussians <= 2 * n
     with torch.no_grad():
@@ -358,7 +362,7 @@ def test_training_path_runs_without_jax():
                                     densification_interval=2)
         scene, losses = train_from_colmap_model(
             pts, None, [cam], [img], RasterConfig(width=32, height=32),
-            params=params, iterations=3)
+            params=params, iterations=3, device="cpu")
         assert len(losses) == 3 and np.isfinite(losses).all()
         bad = [m for m in sys.modules
                if m == "gsworld_tpu" or m.startswith("gsworld_tpu.")]
