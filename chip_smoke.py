@@ -15,10 +15,14 @@ Phases (each prints a line; any failure exits non-zero before a result):
               8 frames (4 envs x 2 cameras, 640x480) of the first render
               state, built by the render path itself, with CUDA-event times
               of both at that launch size; pixels whose transmittance stop
-              flips between the two versions are counted and excused
-  3b. bwd     the compositor backward kernel vs its plain version on one
-              640x480 frame of the phase-5 training scene at its capacity,
-              inputs from the training path's projection and binning
+              flips between the two versions are counted and excused.  The
+              emit kernel's bound is tens of microseconds, so it is timed
+              by launches queued back to back between two events and by
+              the profiler's device duration, beside one wrapper call
+  3b. bwd     the compositor backward kernel and the emit kernel vs their
+              plain versions on one 640x480 frame of the phase-5 training
+              scene at its capacity, inputs from the training path's
+              projection and binning
   4. slice    GSWorldRenderer, 4 envs x 2 cameras, 640x480, tile 32,
               D=64, E=393216, alpha cull on, ~222k Gaussians: 10 batched
               states; launch counts, ms per render step, frames/s,
@@ -74,6 +78,7 @@ TRAIN_ITERS = 300
 TRAIN_VIEWS = 9
 TRAIN_ARC_DEG = 120.0
 STEP_TOL = 1e-4         # one train step, card vs CPU, relative to field max
+BURST = 50              # launches per window of the back-to-back clock
 
 # Roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # lane instructions (67 TFLOP/s counts an FMA as two), MUFU operations
@@ -121,6 +126,50 @@ def cuda_ms(fn, reps=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def burst_ms(launch, k=BURST, reps=7):
+    """The back-to-back clock, for kernels whose bound is far below the
+    host's cost of one wrapper call: ``k`` calls of ``launch`` queued one
+    behind the other between two CUDA events, the time divided by ``k``;
+    median of ``reps``.  ``launch`` does nothing but queue the kernel into
+    outputs allocated before, so the device never waits for the host
+    once the queue has filled."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(k):
+            launch()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
+    return statistics.median(times)
+
+
+def profiler_kernel_ms(launch, name, k=BURST):
+    """The profiler's clock: mean device duration (ms) that torch.profiler
+    gives the kernels whose name contains ``name`` over ``k`` calls of
+    ``launch``; None where the profiler shows no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(k):
+            launch()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    n = sum(e.count for e in hits)
+    if n == 0:
+        return None
+    return sum(e.self_device_time_total for e in hits) / n / 1e3
 
 
 def phase_device():
@@ -369,16 +418,133 @@ def work_line(phase, work, timed):
             f"8x8 {work['walk_sub8_max']}; " + "; ".join(parts))
 
 
-def emit_bound(a):
-    """Bound of the emit kernel on its inputs ``a`` (plan_emit args): the
-    ranked Gaussians that emit read their 56 bytes (rank, offset, count,
-    rect, mean, conic, opacity, depth), the others their count; every
-    slot's 12-byte key and id is written.  Bytes bind (~50 f32
-    instructions per kept entry for the box cull are far below)."""
-    F, N = a["order"].shape
-    emitting = int((a["cnt"] > 0).sum())
-    nbytes = emitting * 56 + (F * N - emitting) * 4 + F * a["E"] * 12
-    return bound_of(50 * int(a["total"].sum()), emitting, nbytes)
+def emit_bound(cnt, E):
+    """Bound of the emit kernel on ``cnt`` (F, N), the kept entries per
+    Gaussian, and E slots per frame: the Gaussians that emit are charged
+    56 bytes (rank, offset, count, rect, mean, conic, opacity, depth: what
+    the thread-per-Gaussian form read; the slot-parallel form reads 48),
+    the others their 4-byte count or offset; every slot's 12-byte key and
+    id is written.  Bytes bind (~50 f32 instructions per kept entry for
+    the box cull are far below)."""
+    F, N = cnt.shape
+    emitting = int((cnt > 0).sum())
+    nbytes = emitting * 56 + (F * N - emitting) * 4 + F * E * 12
+    return bound_of(50 * int(cnt.sum()), emitting, nbytes)
+
+
+def render_inputs(renderer, state):
+    """Projections of every frame (env x camera) of one render step, as
+    the render path builds them -> (Projected (F, N, ...), leading
+    shape)."""
+    import torch
+    from gsworld_tpu_torch.render.rasterize import project_frames
+    with torch.no_grad():
+        posed, cams = renderer.frames(state)
+        return project_frames(posed, cams, renderer.raster_config,
+                              renderer.scene.sh0, renderer.scene.shN)
+
+
+def train_inputs(setup):
+    """Projection of the first training view of the phase-5 scene at its
+    capacity, as the training path builds it -> (Projected (1, N, ...),
+    the padded scene)."""
+    import torch
+    from gsworld_tpu_torch.gs.pcd_init import create_from_pcd
+    from gsworld_tpu_torch.gs.transform import PosedGaussians
+    from gsworld_tpu_torch.render.rasterize import project_frames
+    from gsworld_tpu_torch.train3dgs.densify import pad_scene_capacity
+    scene = pad_scene_capacity(
+        create_from_pcd(setup.points, setup.colors, device=setup.device),
+        setup.capacity)
+    with torch.no_grad():
+        flat, _ = project_frames(
+            PosedGaussians(scene.means, scene.log_scales, scene.quats,
+                           scene.logit_opacities),
+            setup.cams[0], setup.cfg, scene.sh0, scene.shN)
+    return flat, scene
+
+
+def entry_counts(ends):
+    """Kept entries per Gaussian (F, N) from the emit kernel's inclusive
+    slot ends."""
+    import torch
+    ends = ends.long()
+    return torch.diff(ends, dim=-1, prepend=torch.zeros_like(ends[:, :1]))
+
+
+def check_emit(phase, what, plan, cfg):
+    """Emit kernel vs its plain version on the plan_emit result ``plan``
+    (keys equal except within CULL_BORDER of the cull threshold, ids
+    equal, starts and entry order equal after the sort), a line on what
+    the inputs look like, and its times.  -> (the kernel's entry for the
+    kernels line, sorted Gaussian ids, starts)."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.render.binning import sort_entries
+
+    a = plan.args
+    T, E = cfg.num_tiles, a["E"]
+    F = a["ends"].shape[0]
+    keys_k, gid_k = rc.emit_entries(**a)
+    keys_p, gid_p = rc.emit_entries_reference(**a)
+    torch.cuda.synchronize()
+    if not torch.equal(gid_k, gid_p):
+        raise AssertionError(f"emit ({what}): Gaussian ids differ from the "
+                             f"plain version")
+    diff = keys_k != keys_p
+    n_flip = int(diff.sum())
+    if n_flip:
+        f, slot, score, _ = rc.emit_slots(
+            a["ends"], a["rect"], a["mean2d"], a["conic"], a["opacity"],
+            E=E, tile=cfg.tile)
+        margin = torch.full_like(keys_k, 2 ** 40, dtype=torch.float32)
+        margin.view(-1)[f * E + slot] = (score - rc.LOG_ALPHA_MIN).abs()
+        worst = float(margin[diff].max())
+        if worst >= CULL_BORDER:
+            raise AssertionError(f"emit ({what}): {n_flip} keys differ, one "
+                                 f"{worst:.3g} from the cull threshold")
+    gaus_k, starts_k = sort_entries(keys_k, gid_k, T)
+    gaus_p, starts_p = sort_entries(keys_p, gid_p, T)
+    d_starts = int((starts_k.long() - starts_p.long()).abs().max())
+    if n_flip == 0 and (d_starts or not torch.equal(gaus_k, gaus_p)):
+        raise AssertionError(f"emit ({what}): starts or entry order differ")
+    if d_starts > n_flip:
+        raise AssertionError(f"emit ({what}): starts differ by {d_starts} "
+                             f"with only {n_flip} borderline entries")
+    cnt = entry_counts(a["ends"])
+    kept = cnt.sum(-1)
+    hist = {name: int(((cnt >= lo) & (cnt <= hi)).sum()) for name, lo, hi in (
+        ("1", 1, 1), ("2-4", 2, 4), ("5-16", 5, 16), ("17-63", 17, 63),
+        ("64+", 64, 2 ** 30))}
+    log(f"phase {phase} emit, {what} (F={F}, N={cnt.shape[1]}, E={E} "
+        f"each): emitting Gaussians {(cnt > 0).sum(-1).tolist()}, entries "
+        f"per emitting Gaussian {hist}, kept slots {kept.tolist()}, unused "
+        f"{(E - kept).tolist()}, live entries after the cull "
+        f"{starts_k[:, T].tolist()}, overflow {plan.overflow.tolist()}; "
+        f"{n_flip} borderline cull flips, max |starts diff| {d_starts}")
+    # the bound is tens of microseconds: the back-to-back clock and the
+    # profiler read the kernel, one wrapper call between two events reads
+    # the host's checks, allocations and ctypes call with it
+    launch = rc.emit_entries_launcher(**a)[0]
+    ms = burst_ms(launch)
+    prof_ms = profiler_kernel_ms(launch, "emit_kernel")
+    call_ms = cuda_ms(lambda: rc.emit_entries(**a), reps=20)
+    plain_ms = cuda_ms(lambda: rc.emit_entries_reference(**a), reps=10)
+    b, by, _ = emit_bound(cnt, E)
+    log(f"phase {phase} emit time, {what}: kernel {ms:.4f} ms back to back "
+        f"({BURST} launches per window), "
+        + ("profiler not measured" if prof_ms is None
+           else f"{prof_ms:.4f} ms by the profiler")
+        + f", {call_ms:.4f} ms for one wrapper call between events; plain "
+        f"{plain_ms:.4f} ms; bound {b:.4f} ms ({by}), share of bound "
+        f"(bound / kernel) {100 * b / ms:.2f}%")
+    entry = dict(name="emit_entries", route="cuda",
+                 source="gsworld_tpu_torch/csrc/emit.cu",
+                 replaces="gsworld_tpu/render/rasterize_pallas.py:117",
+                 max_abs_err=float(d_starts), ms=ms, plain_ms=plain_ms,
+                 bound_ms=b, bound_by=by, library_ms=None,
+                 profiler_ms=prof_ms, call_ms=call_ms)
+    return entry, gaus_k, starts_k
 
 
 def phase_kernels(renderer, state):
@@ -387,53 +553,16 @@ def phase_kernels(renderer, state):
     builds for them."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
-    from gsworld_tpu_torch.render.binning import plan_emit, sort_entries
-    from gsworld_tpu_torch.render.rasterize import project_frames
+    from gsworld_tpu_torch.render.binning import plan_emit
 
     cfg = renderer.raster_config
-    T = cfg.num_tiles
+    proj, lead = render_inputs(renderer, state)
     with torch.no_grad():
-        posed, cams = renderer.frames(state)
-        proj, lead = project_frames(posed, cams, cfg, renderer.scene.sh0,
-                                    renderer.scene.shN)
         plan = plan_emit(proj, cfg)
     a = plan.args
     F = proj.depth.shape[0]
-
-    keys_k, gid_k = rc.emit_entries(**a)
-    keys_p, gid_p = rc.emit_entries_reference(**a)
-    torch.cuda.synchronize()
-    if not torch.equal(gid_k, gid_p):
-        raise AssertionError("emit: Gaussian ids differ from the plain "
-                             "version")
-    diff = keys_k != keys_p
-    n_flip = int(diff.sum())
-    if n_flip:
-        f, slot, score, _ = rc.emit_slots(
-            a["order"], a["offs"], a["cnt"], a["rect"], a["mean2d"],
-            a["conic"], a["opacity"], tile=cfg.tile)
-        margin = torch.full_like(keys_k, 2 ** 40, dtype=torch.float32)
-        margin.view(-1)[f * a["E"] + slot] = (score - rc.LOG_ALPHA_MIN).abs()
-        worst = float(margin[diff].max())
-        if worst >= CULL_BORDER:
-            raise AssertionError(f"emit: {n_flip} keys differ, one "
-                                 f"{worst:.3g} from the cull threshold")
-    gaus_k, starts_k = sort_entries(keys_k, gid_k, T)
-    gaus_p, starts_p = sort_entries(keys_p, gid_p, T)
-    d_starts = int((starts_k.long() - starts_p.long()).abs().max())
-    if n_flip == 0 and (d_starts or not torch.equal(gaus_k, gaus_p)):
-        raise AssertionError("emit: starts or entry order differ")
-    if d_starts > n_flip:
-        raise AssertionError(f"emit: starts differ by {d_starts} with only "
-                             f"{n_flip} borderline entries")
-    log(f"phase 3 emit, {F} frames {tuple(lead)} (E={a['E']} each): live "
-        f"entries {starts_k[:, T].tolist()}, kept {a['total'].tolist()}, "
-        f"overflow {plan.overflow.tolist()}; {n_flip} borderline cull "
-        f"flips, max |starts diff| {d_starts}")
-    emit_ms = cuda_ms(lambda: rc.emit_entries(**a), reps=20)
-    emit_plain_ms = cuda_ms(lambda: rc.emit_entries_reference(**a), reps=10)
-    log(f"phase 3 emit time: kernel {emit_ms:.4f} ms, plain "
-        f"{emit_plain_ms:.4f} ms")
+    emit_entry, gaus_k, starts_k = check_emit(
+        3, f"{F} render frames {tuple(lead)}", plan, cfg)
 
     sem = renderer.scene.semantics
     comp_args = (starts_k, gaus_k, proj.mean2d, proj.conic, proj.opacity,
@@ -480,16 +609,9 @@ def phase_kernels(renderer, state):
         f"{comp_plain_ms:.4f} ms")
     work = composite_work(starts_k, gaus_k, proj, cfg)
     fwd = composite_bounds(work, segment=True)["fwd"]
-    emit_b = emit_bound(a)
-    log(work_line(3, work, [("composite", fwd, comp_ms),
-                            ("emit", emit_b, emit_ms)]))
+    log(work_line(3, work, [("composite", fwd, comp_ms)]))
     return [
-        dict(name="emit_entries", route="cuda",
-             source="gsworld_tpu_torch/csrc/emit.cu",
-             replaces="gsworld_tpu/render/rasterize_pallas.py:117",
-             max_abs_err=float(d_starts), ms=emit_ms,
-             plain_ms=emit_plain_ms, bound_ms=emit_b[0],
-             bound_by=emit_b[1], library_ms=None),
+        emit_entry,
         dict(name="composite_tiles", route="cuda",
              source="gsworld_tpu_torch/csrc/composite.cu",
              replaces="gsworld_tpu/render/rasterize_pallas.py:323",
@@ -719,25 +841,25 @@ class TrainSetup:
 def phase_backward(setup):
     """Backward kernel vs plain version on one frame of the training scene
     at its capacity, with the training path's projection and binning and
-    the kernel forward's outputs for both versions."""
+    the kernel forward's outputs for both versions; the emit kernel vs its
+    plain version on the same frame.  -> (the backward's entry for the
+    kernels line, the emit kernel's entry at this shape)."""
     import torch
-    from gsworld_tpu_torch.gs.pcd_init import create_from_pcd
-    from gsworld_tpu_torch.gs.transform import PosedGaussians
     from gsworld_tpu_torch.render import rasterize_cuda as rc
-    from gsworld_tpu_torch.render.rasterize import bin_detached, project_frames
-    from gsworld_tpu_torch.train3dgs.densify import pad_scene_capacity
+    from gsworld_tpu_torch.render.binning import plan_emit
+    from gsworld_tpu_torch.render.rasterize import bin_detached
 
     cfg = setup.cfg
     dev = setup.device
-    scene = pad_scene_capacity(
-        create_from_pcd(setup.points, setup.colors, device=dev),
-        setup.capacity)
-    with torch.no_grad():
-        flat, _ = project_frames(
-            PosedGaussians(scene.means, scene.log_scales, scene.quats,
-                           scene.logit_opacities),
-            setup.cams[0], cfg, scene.sh0, scene.shN)
-        bins = bin_detached(flat, cfg)
+    flat, _ = train_inputs(setup)
+    bins = bin_detached(flat, cfg)
+    # the emit kernel at the training path's shape, on the same inputs
+    emit_train, gaus_e, starts_e = check_emit(
+        "3b", "1 training frame", plan_emit(flat, cfg), cfg)
+    if not (torch.equal(gaus_e, bins.gaussian)
+            and torch.equal(starts_e, bins.starts)):
+        raise AssertionError("emit (training frame): the binning path's "
+                             "entries differ from the checked ones")
     args = (bins.starts, bins.gaussian, flat.mean2d, flat.conic,
             flat.opacity, flat.color)
     img, T, _, rec = rc.composite_tiles(*args, None, width=cfg.width,
@@ -787,7 +909,7 @@ def phase_backward(setup):
                 replaces="gsworld_tpu/render/rasterize_pallas.py:535",
                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
-                library_ms=None)
+                library_ms=None), emit_train
 
 
 def train_params():
@@ -941,7 +1063,13 @@ def main(argv=None):
         f"states and {TRAIN_VIEWS} training views in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(renderer, states[0])
-    kernels.append(phase_backward(setup))
+    bwd_entry, emit_train = phase_backward(setup)
+    kernels.append(bwd_entry)
+    # the emit entry's numbers are the render step's; its times on the
+    # training frame ride along
+    kernels[0]["train_frame"] = {k: emit_train[k] for k in (
+        "max_abs_err", "ms", "profiler_ms", "call_ms", "plain_ms",
+        "bound_ms", "bound_by")}
     if args.kernels_only:
         log(json.dumps({"kernels": kernels}))
         return           # a partial run prints no result line

@@ -76,12 +76,14 @@ def _nvcc() -> str:
     return path
 
 
-def compile_library(sources) -> Path:
+def compile_library(sources, defines=()) -> Path:
     """Compile the CUDA ``sources`` (paths; headers beside them) with
-    NVCC_FLAGS into one shared library under ``_build/``, unless a build
-    of the same sources, headers and flags is there.  -> its path."""
+    NVCC_FLAGS and a ``-D`` for each of ``defines`` into one shared
+    library under ``_build/``, unless a build of the same sources, headers
+    and flags is there.  -> its path."""
     sources = [Path(p) for p in sources]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in sources + sorted({q for p in sources
                                   for q in p.parent.glob("*.cuh")}):
         h.update(path.name.encode())
@@ -91,7 +93,7 @@ def compile_library(sources) -> Path:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         _Library.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -102,20 +104,26 @@ def compile_library(sources) -> Path:
     return so_path
 
 
+def bind_emit(lib: ctypes.CDLL):
+    """Declare the C interface of csrc/emit.cu on a loaded library."""
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gsw_emit_entries.argtypes = [P] * 8 + [I] * 7 + [Fl, P]
+    lib.gsw_emit_entries.restype = I
+    lib.gsw_error_string.argtypes = [I]
+    lib.gsw_error_string.restype = ctypes.c_char_p
+
+
 def build_kernels() -> ctypes.CDLL:
     """Compile (if not already built) and load the kernel library."""
     if _Library.lib is not None:
         return _Library.lib
     lib = ctypes.CDLL(str(compile_library([CSRC_DIR / n for n in SOURCES])))
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gsw_emit_entries.argtypes = [P] * 11 + [I] * 7 + [Fl, P]
-    lib.gsw_emit_entries.restype = I
+    bind_emit(lib)
     lib.gsw_composite_tiles.argtypes = [P] * 11 + [I] * 8 + [Fl] * 5 + [P]
     lib.gsw_composite_tiles.restype = I
     lib.gsw_composite_bwd.argtypes = [P] * 7 + [I] * 7 + [Fl, P]
     lib.gsw_composite_bwd.restype = I
-    lib.gsw_error_string.argtypes = [I]
-    lib.gsw_error_string.restype = ctypes.c_char_p
     _Library.lib = lib
     return lib
 
@@ -179,22 +187,35 @@ def _box_max_power(mx, my, A, B, C, tx, ty, tile: int):
     return torch.where(inside, torch.zeros_like(pw), pw)
 
 
-def emit_slots(order, offs, cnt, rect, mean2d, conic, opacity, *,
-               tile: int):
+def emit_owner_reference(ends, E: int):
+    """The slot-to-owner search of the emit kernel in plain PyTorch:
+    ``ends`` (F, N) int32 holds, per frame, the inclusive running sum over
+    Gaussian ids of the kept entry counts, so Gaussian g owns slots
+    [ends[g-1], ends[g]).  -> (F, E) int64, the owner of every slot: the
+    first g with ``ends[g] > slot``, which skips Gaussians without entries
+    (they share their end with their predecessor); N for the slots at or
+    past the frame's total ``ends[:, -1]``."""
+    F = ends.shape[0]
+    slots = torch.arange(E, device=ends.device, dtype=ends.dtype)
+    return torch.searchsorted(ends.contiguous(),
+                              slots.expand(F, E).contiguous(), right=True)
+
+
+def emit_slots(ends, rect, mean2d, conic, opacity, *, E: int, tile: int):
     """Every kept slot of the emit stage, enumerated in plain PyTorch:
-    (frame, slot, cull score, (tile x, tile y, flat Gaussian index)).
-    The cull score is ``box max power + log(opacity)``; the alpha cull
-    keeps a slot when it is >= LOG_ALPHA_MIN, so ``score - LOG_ALPHA_MIN``
-    tells borderline entries apart when kernel and plain version
-    disagree."""
-    F, N = order.shape
-    dev = order.device
-    cnt_l = cnt.reshape(-1).long()
-    rank = torch.repeat_interleave(torch.arange(F * N, device=dev), cnt_l)
-    run0 = torch.cumsum(cnt_l, 0) - cnt_l
-    d = torch.arange(rank.numel(), device=dev) - run0[rank]
-    f = rank // N
-    gi = f * N + order.reshape(-1)[rank].long()
+    (frame, slot, cull score, (tile x, tile y, flat Gaussian index)), in
+    (frame, slot) order.  The cull score is ``box max power +
+    log(opacity)``; the alpha cull keeps a slot when it is >=
+    LOG_ALPHA_MIN, so ``score - LOG_ALPHA_MIN`` tells borderline entries
+    apart when kernel and plain version disagree."""
+    N = ends.shape[1]
+    owner = emit_owner_reference(ends, E)
+    f, slot = torch.nonzero(owner < N, as_tuple=True)
+    g = owner[f, slot]
+    first = torch.where(g > 0, ends[f, (g - 1).clamp_min(0)].long(),
+                        torch.zeros_like(g))
+    d = slot - first
+    gi = f * N + g
     r = rect.reshape(-1, 4)[gi].long()
     w = (r[:, 2] - r[:, 0]).clamp_min(1)
     dy = d // w
@@ -204,19 +225,18 @@ def emit_slots(order, offs, cnt, rect, mean2d, conic, opacity, *,
     pw = _box_max_power(m[:, 0], m[:, 1], c[:, 0], c[:, 1], c[:, 2],
                         tx, ty, tile)
     lop = torch.log(opacity.reshape(-1)[gi].clamp_min(1e-12))
-    slot = offs.reshape(-1)[rank].long() + d
     return f, slot, pw + lop, (tx, ty, gi)
 
 
-def emit_entries_reference(order, offs, cnt, total, rect, mean2d, conic,
-                           opacity, depth, *, E: int, gx: int, T: int,
-                           tile: int, cull_alpha: bool):
+def emit_entries_reference(ends, rect, mean2d, conic, opacity, depth, *,
+                           E: int, gx: int, T: int, tile: int,
+                           cull_alpha: bool):
     """Plain PyTorch version of the emit kernel (same inputs/outputs as
     :func:`emit_entries`)."""
-    F, N = order.shape
-    dev = order.device
+    F, N = ends.shape
+    dev = ends.device
     f, slot, score, (tx, ty, gi) = emit_slots(
-        order, offs, cnt, rect, mean2d, conic, opacity, tile=tile)
+        ends, rect, mean2d, conic, opacity, E=E, tile=tile)
     tile_id = ty * gx + tx
     if cull_alpha:
         tile_id = torch.where(score >= LOG_ALPHA_MIN, tile_id,
@@ -233,47 +253,70 @@ def emit_entries_reference(order, offs, cnt, total, rect, mean2d, conic,
     return keys, gid
 
 
-def emit_entries(order, offs, cnt, total, rect, mean2d, conic, opacity,
-                 depth, *, E: int, gx: int, T: int, tile: int,
-                 cull_alpha: bool):
-    """Expand depth-ranked Gaussians into per-(tile, Gaussian) entries.
-
-    Args (F frames, N Gaussians): ``order`` (F, N) int32 Gaussian id per
-    depth rank; ``offs``/``cnt`` (F, N) int32 exclusive slot offset and
-    kept entry count per rank; ``total`` (F,) int32 kept slots per frame;
-    ``rect`` (F, N, 4) int32; ``mean2d`` (F, N, 2), ``conic`` (F, N, 3),
-    ``opacity``/``depth`` (F, N) f32.
-    Returns ``keys`` (F, E) int64 = ((f (T+1) + tile) << 32) | depth bits
-    (tile = T for culled and unused slots) and ``gid`` (F, E) int32
-    (-1 in unused slots)."""
-    if order.device.type == "cpu":
-        return emit_entries_reference(order, offs, cnt, total, rect, mean2d,
-                                      conic, opacity, depth, E=E, gx=gx,
-                                      T=T, tile=tile, cull_alpha=cull_alpha)
-    dev = _cuda_device(order, "emit_entries")
-    F, N = order.shape
+def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
+                          E: int, gx: int, T: int, tile: int,
+                          cull_alpha: bool, lib=None):
+    """Check the CUDA inputs of :func:`emit_entries`, build the kernels if
+    need be and allocate the outputs -> (launch, keys, gid).  ``launch()``
+    queues the emit kernel on the current stream, writing ``keys`` and
+    ``gid``, and counts one launch; it does nothing else, so a timer can
+    queue it many times back to back.  ``lib`` is another build of
+    csrc/emit.cu to launch from (the instrumented one of
+    tools/emit_times.py)."""
+    dev = _cuda_device(ends, "emit_entries")
+    F, N = ends.shape
     i32, f32 = torch.int32, torch.float32
     for name, t, dt, shp in (
-            ("order", order, i32, (F, N)), ("offs", offs, i32, (F, N)),
-            ("cnt", cnt, i32, (F, N)), ("total", total, i32, (F,)),
-            ("rect", rect, i32, (F, N, 4)), ("mean2d", mean2d, f32, (F, N, 2)),
-            ("conic", conic, f32, (F, N, 3)), ("opacity", opacity, f32, (F, N)),
-            ("depth", depth, f32, (F, N))):
+            ("ends", ends, i32, (F, N)), ("rect", rect, i32, (F, N, 4)),
+            ("mean2d", mean2d, f32, (F, N, 2)),
+            ("conic", conic, f32, (F, N, 3)),
+            ("opacity", opacity, f32, (F, N)), ("depth", depth, f32, (F, N))):
         _require(t, name, dt, shp, dev)
     if F * (T + 1) >= 2 ** 31:
         raise ValueError("frame/tile key does not fit 32 bits")
-    lib = build_kernels()
+    if gx >= 2 ** 16 or T >= gx * 2 ** 15:
+        raise ValueError("tile coordinates do not fit 16 bits")
+    if E >= 2 ** 30:
+        raise ValueError("slot indices do not fit the kernel's int32")
+    if rect.data_ptr() % 16 or mean2d.data_ptr() % 8:
+        raise ValueError("rect and mean2d must start on 16 and 8 bytes")
+    lib = lib or build_kernels()
     keys = torch.empty((F, E), dtype=torch.int64, device=dev)
     gid = torch.empty((F, E), dtype=i32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gsw_emit_entries(
-        order.data_ptr(), offs.data_ptr(), cnt.data_ptr(), total.data_ptr(),
-        rect.data_ptr(), mean2d.data_ptr(), conic.data_ptr(),
-        opacity.data_ptr(), depth.data_ptr(), keys.data_ptr(),
-        gid.data_ptr(), F, N, E, gx, T, tile, int(cull_alpha),
-        LOG_ALPHA_MIN, stream)
-    _check(lib, rc, "emit_entries")
-    launch_counts["emit_entries"] += 1
+    args = (ends.data_ptr(), rect.data_ptr(), mean2d.data_ptr(),
+            conic.data_ptr(), opacity.data_ptr(), depth.data_ptr(),
+            keys.data_ptr(), gid.data_ptr(), F, N, E, gx, T, tile,
+            int(cull_alpha), LOG_ALPHA_MIN,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        _check(lib, lib.gsw_emit_entries(*args), "emit_entries")
+        launch_counts["emit_entries"] += 1
+
+    return launch, keys, gid
+
+
+def emit_entries(ends, rect, mean2d, conic, opacity, depth, *, E: int,
+                 gx: int, T: int, tile: int, cull_alpha: bool):
+    """Expand Gaussians into per-(tile, Gaussian) entries, slots laid out
+    in Gaussian order.
+
+    Args (F frames, N Gaussians): ``ends`` (F, N) int32, the inclusive
+    running sum over Gaussian ids of the entry counts the budget kept
+    (Gaussian g owns slots [ends[g-1], ends[g]), row-major over its tile
+    rect; ``ends[:, -1] <= E`` is the frame's total); ``rect`` (F, N, 4)
+    int32; ``mean2d`` (F, N, 2), ``conic`` (F, N, 3), ``opacity``/``depth``
+    (F, N) f32.
+    Returns ``keys`` (F, E) int64 = ((f (T+1) + tile) << 32) | depth bits
+    (tile = T for culled and unused slots) and ``gid`` (F, E) int32
+    (-1 in unused slots)."""
+    kw = dict(E=E, gx=gx, T=T, tile=tile, cull_alpha=cull_alpha)
+    if ends.device.type == "cpu":
+        return emit_entries_reference(ends, rect, mean2d, conic, opacity,
+                                      depth, **kw)
+    launch, keys, gid = emit_entries_launcher(ends, rect, mean2d, conic,
+                                              opacity, depth, **kw)
+    launch()
     return keys, gid
 
 
