@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch + CUDA port (gsworld_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from the sources in the checkout, holds each
 kernel against its plain PyTorch version at the shapes of its path, then
-drives the GS render half of the AlignFr3 step (GSWorldRenderer.render)
-and 3DGS training (real2sim.pipeline.train_from_colmap_model) at full
-size and reports their speed.
+drives the GS render half of the AlignFr3 step (GSWorldRenderer.render),
+3DGS training (real2sim.pipeline.train_from_colmap_model), the physics
+step of AlignFr3Env-v1 and the closed loop (rollout.random_actions) at
+full size and reports their speed.
 
     python3 chip_smoke.py
 
@@ -37,9 +38,23 @@ Phases (each prints a line; any failure exits non-zero before a result):
               held-out PSNR, peak memory
   5b. step    one training step of a ~2k-Gaussian scene at 160x120 on the
               card against the same step on the CPU
-The line before the JSON lines repeats the render-step line, the one
-before it the train line; the second-to-last line is the kernels JSON,
-the last the device JSON.  Long outputs (profile, ptxas report) go to
+  6a. physics AlignFr3Env-v1 (obs_mode state_dict) at 1, 4 and 64 envs:
+              reset(seed), 30 control steps of random actions, eager and
+              through the CUDA graph of the physics step: ms per step,
+              env-steps/s, kernels per step, peak memory; a torch.profiler
+              window by physics stage; 10 graph steps against 10 eager
+              steps, every WorldState field bit for bit; one control step
+              on the card against the same step on the CPU
+  6b. sanity  40 zero-action steps on the card: both cans rest, the arm
+              holds its init pose, no pair force, nothing non-finite
+  6c. loop    rollout.random_actions.build + rollout_fps: the closed loop
+              (physics step, then the GS render of the new state) at 4
+              envs x 2 cameras 640x480 for 30 steps, at 1 env, and at 64
+              envs for 3 steps; split into physics and render by CUDA
+              events; launch counts; the frames follow a moved can
+The lines before the JSON lines repeat the train, render-step, physics
+and closed-loop lines; the second-to-last line is the kernels JSON, the
+last the device JSON.  Long outputs (profile, ptxas report) go to
 chiprun_out/.
 """
 
@@ -79,6 +94,15 @@ TRAIN_VIEWS = 9
 TRAIN_ARC_DEG = 120.0
 STEP_TOL = 1e-4         # one train step, card vs CPU, relative to field max
 BURST = 50              # launches per window of the back-to-back clock
+PHYS_ENVS = (1, 4, 64)
+PHYS_STEPS = 30
+GRAPH_STEPS = 10        # graph vs eager, bit for bit
+# one control step, card vs CPU, from the same state (absolute)
+PHYS_POS_TOL = 1e-5
+PHYS_VEL_TOL = 1e-3
+REST_STEPS = 40
+LOOP_STEPS = 30
+LOOP_STEPS_64 = 3
 
 # Roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # lane instructions (67 TFLOP/s counts an FMA as two), MUFU operations
@@ -621,8 +645,16 @@ def phase_kernels(renderer, state):
     ]
 
 
-def check_outputs(out, B, H, W):
+def check_outputs(out, B, H, W, ids_per_camera=True):
+    """Shapes and dtypes of the JAX wrapper's sensor_data, images that are
+    not constant, and at least 3 segmentation ids in every camera (or, for
+    states the physics chose, over all cameras together)."""
     import torch
+    if not ids_per_camera:
+        ids = torch.unique(torch.cat([o["segmentation"].flatten()
+                                      for o in out.values()]))
+        if len(ids) < 3:
+            raise AssertionError("segmentation has < 3 ids over all cameras")
     for cam, o in out.items():
         rgb, seg = o["rgb"], o["segmentation"]
         if rgb.shape != (B, H, W, 3) or rgb.dtype != torch.uint8:
@@ -631,7 +663,7 @@ def check_outputs(out, B, H, W):
             raise AssertionError(f"{cam}: seg {tuple(seg.shape)} {seg.dtype}")
         if float(rgb.float().std()) < 5.0:
             raise AssertionError(f"{cam}: image is (nearly) constant")
-        if len(torch.unique(seg)) < 3:
+        if ids_per_camera and len(torch.unique(seg)) < 3:
             raise AssertionError(f"{cam}: segmentation has < 3 ids")
 
 
@@ -914,7 +946,8 @@ def phase_backward(setup):
 
 def train_params():
     from gsworld_tpu_torch.train3dgs.optim import OptimizationParams
-    return OptimizationParams(densify_from_iter=100, densification_interval=100,
+    return OptimizationParams(densify_from_iter=TRAIN_ITERS // 3,
+                              densification_interval=TRAIN_ITERS // 3,
                               densify_until_iter=TRAIN_ITERS,
                               opacity_reset_interval=10_000)
 
@@ -979,8 +1012,10 @@ def phase_train(setup):
             f"held out), {TRAIN_ITERS} iterations in {wall:.2f} s: "
             f"{med:.3f} ms per train step (median of {len(ms)} without "
             f"densify; min {min(ms):.3f}, max {max(ms):.3f}), loss "
-            f"{losses[0]:.5f} / {losses[99]:.5f} / {losses[199]:.5f} / "
-            f"{losses[-1]:.5f} at iterations 1/100/200/{TRAIN_ITERS} (first 20 "
+            f"{losses[0]:.5f} / {losses[TRAIN_ITERS // 3 - 1]:.5f} / "
+            f"{losses[2 * TRAIN_ITERS // 3 - 1]:.5f} / {losses[-1]:.5f} at "
+            f"iterations 1/{TRAIN_ITERS // 3}/{2 * TRAIN_ITERS // 3}/"
+            f"{TRAIN_ITERS} (first 20 "
             f"mean {first:.5f}, last 20 {last:.5f}), alive after densify "
             f"{densified_at} -> {scene.num_gaussians} returned, held-out "
             f"PSNR {hold_psnr:.2f} dB, peak memory {peak / 2**30:.3f} GiB, "
@@ -1044,16 +1079,323 @@ def phase_small_train():
         f"{STEP_TOL})")
 
 
+# ---------------------------------------------------------------------- #
+# Phase 6: the physics step and the closed loop
+# ---------------------------------------------------------------------- #
+
+
+def make_env(num_envs, device, graph, obs_mode="state_dict"):
+    from gsworld_tpu_torch import envs
+    return envs.make("AlignFr3Env-v1", num_envs=num_envs, obs_mode=obs_mode,
+                     device=device, graph=graph)
+
+
+def seeded_actions(env, n, seed=SEED):
+    """``n`` batches of random actions from an explicit generator."""
+    import torch
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    return [env.action_space_sample(gen) for _ in range(n)]
+
+
+def world_diff(a, b):
+    """Per field of two WorldStates: (bit-for-bit equal, max |a - b|)."""
+    import torch
+    from gsworld_tpu_torch.physics.world import WORLD_FIELDS
+    out = {}
+    for f in WORLD_FIELDS:
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        out[f] = (torch.equal(x, y), float((x - y).abs().max()))
+    return out
+
+
+def check_finite(world, what):
+    import torch
+    from gsworld_tpu_torch.physics.world import WORLD_FIELDS
+    bad = [f for f in WORLD_FIELDS
+           if not bool(torch.isfinite(getattr(world, f)).all())]
+    if bad:
+        raise AssertionError(f"{what}: non-finite values in {bad}")
+
+
+def count_kernels(step, n=3):
+    """CUDA kernels launched (or replayed from a graph) per call of
+    ``step``, by the profiler; None where it shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    k = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("gsw."))
+    return k / n if k else None
+
+
+def physics_steps(B, graph):
+    """reset(SEED), two warm-up steps, then PHYS_STEPS timed env.step of
+    seeded random actions -> (env, ms per step, peak bytes, kernels per
+    step)."""
+    import torch
+    env = make_env(B, "cuda", graph)
+    actions = seeded_actions(env, PHYS_STEPS)
+    env.reset(seed=SEED)
+    for a in actions[:2]:
+        env.step(a)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for a in actions:
+        t0 = time.perf_counter()
+        env.step(a)
+        torch.cuda.synchronize()
+        ms.append(1000.0 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    check_finite(env.state.world, f"physics B={B}")
+    kernels = count_kernels(lambda i: env.step(actions[i]))
+    return env, ms, peak, kernels
+
+
+def phase_physics():
+    """6a: the physics step alone, eager and through its CUDA graph."""
+    import torch
+    from gsworld_tpu_torch.physics.world import (contact_row_count,
+                                                  world_state_from_numpy,
+                                                  world_state_to_numpy)
+    lines = []
+    for B in PHYS_ENVS:
+        res = {}
+        for graph in (False, True):
+            res[graph] = physics_steps(B, graph)
+        env = res[True][0]
+        if env._physics_graph is None:
+            raise AssertionError("physics: graph=True stepped without a "
+                                 "captured graph")
+        rows = contact_row_count(env.scene)
+        parts = []
+        for graph, name in ((False, "eager"), (True, "graph")):
+            _, ms, peak, kernels = res[graph]
+            med = statistics.median(ms)
+            parts.append(
+                f"{name} {med:.3f} ms per control step (median of "
+                f"{len(ms)}; min {min(ms):.3f}, max {max(ms):.3f}), "
+                f"{1000.0 * B / med:.1f} env-steps/s, "
+                + ("kernels per step not measured" if kernels is None
+                   else f"{kernels:.0f} kernels per step")
+                + f", peak memory {peak / 2**30:.3f} GiB")
+        line = (f"phase 6a physics, AlignFr3Env-v1, {B} envs, {rows} contact "
+                f"rows, {env.scene.substeps} substeps: " + "; ".join(parts))
+        log(line)
+        lines.append(line)
+        if B == NUM_ENVS:
+            keep = res
+
+    # ---- graph vs eager, bit for bit, from the same state and actions
+    eager, graphed = make_env(NUM_ENVS, "cuda", False), \
+        make_env(NUM_ENVS, "cuda", True)
+    actions = seeded_actions(eager, GRAPH_STEPS, seed=SEED + 7)
+    eager.reset(seed=SEED + 3)
+    graphed.reset(seed=SEED + 3)
+    for i, a in enumerate(actions):
+        eager.step(a)
+        graphed.step(a)
+        d = world_diff(eager.state.world, graphed.state.world)
+        bad = {f: v[1] for f, v in d.items() if not v[0]}
+        if bad:
+            raise AssertionError(f"physics: graph and eager differ at step "
+                                 f"{i + 1}: max |diff| {bad}")
+    log(f"phase 6a graph vs eager, {NUM_ENVS} envs, {GRAPH_STEPS} control "
+        f"steps from one state and the same actions: every WorldState "
+        f"field bit for bit")
+
+    # ---- one control step, card vs CPU, from the same state
+    start = world_state_to_numpy(eager.state.world)
+    cpu_env = make_env(NUM_ENVS, "cpu", False)
+    a = actions[0]
+    w_card, _ = eager._physics_eager(eager.state.world,
+                                     eager.state.prev_target, a)
+    w_cpu, _ = cpu_env._physics_eager(
+        world_state_from_numpy(start, device="cpu"),
+        eager.state.prev_target.cpu(), a.cpu())
+    d = {f: v[1] for f, v in world_diff(w_card, w_cpu).items()}
+    pos_err = max(d["qpos"], d["a_pos"])
+    vel_err = max(d["qvel"], d["a_lin"], d["a_ang"])
+    if not (pos_err <= PHYS_POS_TOL and vel_err <= PHYS_VEL_TOL):
+        raise AssertionError(f"physics: card vs CPU after one control step "
+                             f"{d}")
+    log(f"phase 6a card vs CPU, one control step of {NUM_ENVS} envs from "
+        f"the state after {GRAPH_STEPS} steps: max |diff| qpos/a_pos "
+        f"{pos_err:.3g} (<= {PHYS_POS_TOL}), velocities {vel_err:.3g} (<= "
+        f"{PHYS_VEL_TOL}); all fields "
+        f"{ {k: float(f'{v:.3g}') for k, v in d.items()} }")
+
+    # ---- profile by stage (eager: the ranges mark the launches)
+    env_e, env_g = keep[False][0], keep[True][0]
+    acts = seeded_actions(env_e, 3, seed=SEED + 11)
+    phase_profile("6a", "physics_eager", lambda i: env_e.step(acts[i]))
+    phase_profile("6a", "physics_graph", lambda i: env_g.step(acts[i]))
+    return lines
+
+
+def phase_rest():
+    """6b: 40 zero-action steps; the world must come to rest."""
+    import torch
+    from gsworld_tpu_torch import constants
+    env = make_env(NUM_ENVS, "cuda", True)
+    env.reset(seed=SEED)
+    zero = torch.zeros(env.action_dim, device=env.device)
+    for _ in range(REST_STEPS):
+        env.step(zero)
+    w = env.state.world
+    check_finite(w, "rest")
+    speed = float(torch.linalg.norm(w.a_lin[:, :2], dim=-1).max())
+    z = w.a_pos[:, :2, 2].cpu()
+    want = torch.tensor([env.green_half_height, env.red_half_height])
+    z_err = float((z - want).abs().max())
+    q0 = torch.as_tensor(constants.fr3_umi_task_init_qpos[:7])
+    arm_err = float((w.qpos[:, :7].cpu() - q0).abs().max())
+    force = float(w.la_forces.abs().max())
+    if not (speed < 0.05 and z_err <= 2e-3 and arm_err <= 2e-3
+            and force == 0.0):
+        raise AssertionError(f"rest: can speed {speed:.3g} m/s, |z - half "
+                             f"height| {z_err:.3g} m, arm drift "
+                             f"{arm_err:.3g} rad, pair force {force:.3g} N")
+    log(f"phase 6b rest, {NUM_ENVS} envs after {REST_STEPS} zero-action "
+        f"steps: can speed {speed:.3g} m/s (< 0.05), |z - half height| "
+        f"{z_err:.3g} m (<= 2e-3), arm within {arm_err:.3g} rad of its "
+        f"init pose (<= 2e-3), pair forces {force:.3g} N, all finite")
+
+
+def loop_steps(wrapper, n, seed=SEED):
+    """``n`` closed-loop steps timed in two parts by CUDA events:
+    -> (physics ms, render ms) medians, last obs."""
+    import torch
+    env = wrapper.env
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    phys, rend = [], []
+    for _ in range(n):
+        a = env.action_space_sample(gen)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        (env._state, obs, *_rest) = env._step_fn(env._state, a)
+        e[1].record()
+        obs = dict(obs)
+        obs["sensor_data"] = wrapper._render_fn(env._state)
+        e[2].record()
+        e[2].synchronize()
+        phys.append(e[0].elapsed_time(e[1]))
+        rend.append(e[1].elapsed_time(e[2]))
+    return statistics.median(phys), statistics.median(rend), obs
+
+
+def phase_closed_loop():
+    """6c: the closed loop through rollout.random_actions."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.rollout.random_actions import build, rollout_fps
+    lines, counts4 = [], None
+    for B, steps in ((NUM_ENVS, LOOP_STEPS), (1, LOOP_STEPS),
+                     (64, LOOP_STEPS_64)):
+        t0 = time.perf_counter()
+        env, wrapper = build(
+            "AlignFr3Env-v1", B, "fr3_align", 120, 40,
+            BENCH_RASTER["width"], BENCH_RASTER["height"],
+            obs_mode="rgb+segmentation", tile=BENCH_RASTER["tile"],
+            max_tiles_per_gaussian=BENCH_RASTER["max_tiles_per_gaussian"],
+            max_entries=BENCH_RASTER["max_entries"])
+        def timed_start():
+            # after the reset and the warm-up steps (graph capture, first
+            # renders), just before the timed steps
+            torch.cuda.reset_peak_memory_stats()
+            rc.reset_launch_counts()
+
+        fps, spf, frames = rollout_fps(wrapper, steps, seed=SEED, warmup=2,
+                                       on_timed_start=timed_start)
+        counts = dict(rc.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("emit_entries", "composite_tiles"):
+            if counts[name] != steps:
+                raise AssertionError(
+                    f"closed loop B={B}: kernel {name} launched "
+                    f"{counts[name]} times in {steps} steps")
+        cam = env.cameras[0]
+        if frames.shape != (B, cam.height, cam.width, 3) \
+                or frames.dtype.name != "uint8":
+            raise AssertionError(f"closed loop B={B}: frames "
+                                 f"{frames.shape} {frames.dtype}")
+        check_finite(env.state.world, f"closed loop B={B}")
+        overflow = int(wrapper.renderer.last_overflow.sum())
+        phys_ms, rend_ms, obs = loop_steps(wrapper, min(steps, 10))
+        check_outputs(obs["sensor_data"], B, cam.height, cam.width,
+                      ids_per_camera=False)
+        line = (f"phase 6c closed loop, {B} envs x {len(env.cameras)} cams "
+                f"{cam.width}x{cam.height}, {steps} steps: {fps:.2f} "
+                f"env-steps/s, {1000.0 * spf:.3f} ms per step (host clock, "
+                f"ended by a synchronize and a host read); by CUDA events "
+                f"physics + observation {phys_ms:.3f} ms, render "
+                f"{rend_ms:.3f} ms (medians of {min(steps, 10)} further "
+                f"steps); overflow {overflow} entries in the last step, "
+                f"peak memory {peak / 2**30:.3f} GiB, launches {counts} "
+                f"in the {steps} timed steps (built, warmed and run in "
+                f"{time.perf_counter() - t0:.1f} s)")
+        log(line)
+        lines.append(line)
+        if B == NUM_ENVS:
+            counts4 = counts
+            check_frames_follow_state(wrapper)
+            phase_profile("6c", "closed_loop", lambda i: wrapper.step(
+                env.action_space_sample()))
+        del env, wrapper
+        torch.cuda.empty_cache()
+    return counts4, lines
+
+
+def check_frames_follow_state(wrapper):
+    """The render reads the stepped state: move the green can of env 0 by
+    5 cm and env 0's frames change, while the other envs' stay as they
+    were."""
+    import torch
+    env = wrapper.env
+    def both():
+        out = wrapper.render_current_step()
+        return torch.cat([out[c.name]["rgb"] for c in env.cameras], dim=1)
+
+    before = both().clone()
+    w = env.state.world
+    a_pos = w.a_pos.clone()
+    a_pos[0, 0, 1] -= 0.05
+    env._state = env.state.replace(world=w.replace(a_pos=a_pos))
+    after = both()
+    env._state = env.state.replace(world=w)
+    changed = (before != after).any(dim=-1).flatten(1).sum(dim=1)
+    if not (int(changed[0]) > 200 and int(changed[1:].sum()) == 0):
+        raise AssertionError(f"closed loop: pixels changed per env after "
+                             f"moving env 0's can: {changed.tolist()}")
+    log(f"phase 6c frames follow the state: moving env 0's green can by "
+        f"5 cm changes {int(changed[0])} pixels of its two frames and none "
+        f"of the other envs'")
+
+
 def main(argv=None):
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1-3b only and print no result line")
+    ap.add_argument("--physics-only", action="store_true",
+                    help="run phases 1, 6a and 6b only (no kernel is "
+                         "built) and print no result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_device()
     sys.path.insert(0, REPO)
+    if args.physics_only:
+        phase_physics()
+        phase_rest()
+        return           # a partial run prints no result line
     phase_build()
     t0 = time.perf_counter()
     renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
@@ -1078,13 +1420,23 @@ def main(argv=None):
     phase_small_agreement()
     train_counts, train_line = phase_train(setup)
     phase_small_train()
+    del renderer, states, setup
+    torch.cuda.empty_cache()
+    physics_lines = phase_physics()
+    phase_rest()
+    loop_counts, loop_lines = phase_closed_loop()
     # launches: the render path's for its kernels, the training path's for
-    # the backward (both paths' counts are in the two lines below)
+    # the backward (every path's counts are in the lines below); the
+    # closed loop's launches of the forward kernels ride along
     for k in kernels:
         k["launches"] = (train_counts if k["name"] == "composite_bwd"
                          else counts)[k["name"]]
+        if k["name"] in loop_counts and k["name"] != "composite_bwd":
+            k["closed_loop_launches"] = loop_counts[k["name"]]
     log(train_line)          # repeated here so the end of the log holds them
     log(slice_line)
+    for line in physics_lines + loop_lines:
+        log(line)
     line = json.dumps({"kernels": kernels})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         f.write(line + "\n")

@@ -27,6 +27,10 @@ def quat_multiply(a, b):
     ], dim=-1)
 
 
+def quat_conjugate(q):
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
 def quat_rotate(q, v):
     """Rotate vectors v (..., 3) by unit quaternions q (..., 4)."""
     qw = q[..., :1]
@@ -118,6 +122,12 @@ def pose_multiply(p1, q1, p2, q2):
     return p1 + quat_rotate(q1, p2), quat_multiply(q1, q2)
 
 
+def pose_inverse(p, q):
+    """Inverse of a (p, unit q_wxyz) pose."""
+    qi = quat_conjugate(q)
+    return -quat_rotate(qi, p), qi
+
+
 def extract_rigid_transform_fast(M):
     """Uniform-scaled rotation 4x4 -> (rigid 4x4, scale, R, t): scale =
     det(A)^(1/3), R = A / scale refined by two Newton orthogonalisation
@@ -135,3 +145,11 @@ def extract_rigid_transform_fast(M):
 def inverse_sigmoid(x):
     """log(x / (1 - x)): the reference's scale/opacity logit transform."""
     return torch.log(x / (1.0 - x))
+
+
+def compute_angle_between(a, b, eps: float = 1e-8):
+    """Angle in radians between batched vectors (..., 3)."""
+    na = torch.linalg.norm(a, dim=-1)
+    nb = torch.linalg.norm(b, dim=-1)
+    cos = torch.sum(a * b, dim=-1) / (na * nb).clamp_min(eps)
+    return torch.arccos(cos.clamp(-1.0, 1.0))

@@ -65,10 +65,18 @@ class ArticulationModel:
     axis: np.ndarray             # (L, 3) f32
     dof_index: np.ndarray        # (L,) int32, -1 for fixed joints
     dof_names: Tuple[str, ...]
+    dof_link: np.ndarray         # (dof,) int32 link driven by each dof
     qlimits: np.ndarray          # (dof, 2) f32
+    effort: np.ndarray           # (dof,) f32
+    velocity: np.ndarray         # (dof,) f32
+    damping: np.ndarray          # (dof,) f32
+    friction: np.ndarray         # (dof,) f32
     mimic_parent: np.ndarray     # (dof,) int32, -1 = free
     mimic_mult: np.ndarray       # (dof,) f32
     mimic_offset: np.ndarray     # (dof,) f32
+    mass: np.ndarray             # (L,) f32
+    com_pos: np.ndarray          # (L, 3) f32
+    inertia: np.ndarray          # (L, 3, 3) f32 about the COM, link frame
 
     @property
     def num_links(self) -> int:
@@ -111,7 +119,16 @@ def build_articulation(spec: RobotSpec) -> ArticulationModel:
     origin_quat = np.tile(np.array([1, 0, 0, 0], np.float32), (L, 1))
     axis = np.tile(np.array([1, 0, 0], np.float32), (L, 1))
     dof_index = np.full(L, -1, np.int32)
+    mass = np.zeros(L, np.float32)
+    com_pos = np.zeros((L, 3), np.float32)
+    inertia = np.zeros((L, 3, 3), np.float32)
+    link_by_name = {l.name: l for l in spec.links}
     for i, ln in enumerate(order):
+        link = link_by_name[ln]
+        mass[i] = link.mass
+        com_pos[i] = link.com_pos
+        # rotate the inertia into the link frame: I_link = R I R^T
+        inertia[i] = link.com_rot @ link.inertia @ link.com_rot.T
         j = child2joint.get(ln)
         if j is None:
             continue
@@ -125,11 +142,21 @@ def build_articulation(spec: RobotSpec) -> ArticulationModel:
 
     nd = len(movable)
     qlimits = np.zeros((nd, 2), np.float32)
+    effort = np.zeros(nd, np.float32)
+    velocity = np.zeros(nd, np.float32)
+    damping = np.zeros(nd, np.float32)
+    friction = np.zeros(nd, np.float32)
+    dof_link = np.zeros(nd, np.int32)
     mimic_parent = np.full(nd, -1, np.int32)
     mimic_mult = np.ones(nd, np.float32)
     mimic_offset = np.zeros(nd, np.float32)
     for k, j in enumerate(movable):
         qlimits[k] = [j.limit_lower, j.limit_upper]
+        effort[k] = j.effort if np.isfinite(j.effort) else 1e9
+        velocity[k] = j.velocity if np.isfinite(j.velocity) else 1e9
+        damping[k] = j.damping
+        friction[k] = j.friction
+        dof_link[k] = index[j.child]
         if j.mimic is not None:
             mimic_parent[k] = dof_of_joint[j.mimic.joint]
             mimic_mult[k] = j.mimic.multiplier
@@ -139,9 +166,28 @@ def build_articulation(spec: RobotSpec) -> ArticulationModel:
     return ArticulationModel(
         name=spec.name, link_names=tuple(order), parent=parent, jtype=jtype,
         origin_pos=origin_pos, origin_quat=origin_quat, axis=axis,
-        dof_index=dof_index, dof_names=dof_names, qlimits=qlimits,
-        mimic_parent=mimic_parent, mimic_mult=mimic_mult,
-        mimic_offset=mimic_offset)
+        dof_index=dof_index, dof_names=dof_names, dof_link=dof_link,
+        qlimits=qlimits, effort=effort, velocity=velocity, damping=damping,
+        friction=friction, mimic_parent=mimic_parent, mimic_mult=mimic_mult,
+        mimic_offset=mimic_offset, mass=mass, com_pos=com_pos,
+        inertia=inertia)
+
+
+def model_tensors(model: ArticulationModel, device) -> Dict[str, torch.Tensor]:
+    """The model's numpy tables as tensors on ``device``: built once per
+    (model, device) and kept on the model, so a step copies nothing from
+    the host.  Floats are f32, index tables int64."""
+    cache = model.__dict__.setdefault("_tensors", {})
+    device = torch.device(device)
+    if device not in cache:
+        out = {}
+        for f in dataclasses.fields(model):
+            v = getattr(model, f.name)
+            if isinstance(v, np.ndarray):
+                dt = torch.float32 if v.dtype.kind == "f" else torch.long
+                out[f.name] = torch.as_tensor(v, dtype=dt, device=device)
+        cache[device] = out
+    return cache[device]
 
 
 def forward_kinematics(model: ArticulationModel, qpos: torch.Tensor,
@@ -155,9 +201,10 @@ def forward_kinematics(model: ArticulationModel, qpos: torch.Tensor,
         root_pos = torch.zeros(batch + (3,), **kw)
     if root_quat is None:
         root_quat = torch.tensor([1.0, 0.0, 0.0, 0.0], **kw)
-    origin_pos = torch.as_tensor(model.origin_pos, **kw)
-    origin_quat = torch.as_tensor(model.origin_quat, **kw)
-    axis = torch.as_tensor(model.axis, **kw)
+    mt = model_tensors(model, qpos.device)
+    origin_pos = mt["origin_pos"].to(qpos.dtype)
+    origin_quat = mt["origin_quat"].to(qpos.dtype)
+    axis = mt["axis"].to(qpos.dtype)
 
     pos = [root_pos.expand(batch + (3,))]
     quat = [root_quat.expand(batch + (4,))]
@@ -181,9 +228,9 @@ def forward_kinematics(model: ArticulationModel, qpos: torch.Tensor,
 
 def apply_mimic(model: ArticulationModel, qpos: torch.Tensor):
     """Overwrite mimic dofs from their parents: q_m = mult * q_p + offset."""
-    kw = dict(device=qpos.device)
-    mp = torch.as_tensor(model.mimic_parent, dtype=torch.long, **kw)
-    mult = torch.as_tensor(model.mimic_mult, dtype=qpos.dtype, **kw)
-    off = torch.as_tensor(model.mimic_offset, dtype=qpos.dtype, **kw)
+    mt = model_tensors(model, qpos.device)
+    mp = mt["mimic_parent"]
+    mult = mt["mimic_mult"].to(qpos.dtype)
+    off = mt["mimic_offset"].to(qpos.dtype)
     parent_q = qpos[..., mp.clamp_min(0)]
     return torch.where(mp >= 0, mult * parent_q + off, qpos)

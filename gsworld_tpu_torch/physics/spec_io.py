@@ -3,8 +3,11 @@
 The shipped robots live under ``gsworld_tpu/assets/robots/`` as
 ``<name>.json`` (kinematic tree in URDF document order) and
 ``<name>_geom.npz`` (collision support points and per-link surface
-samples).  They are data files, read here by path.  Only the kinematic
-part is loaded: the port has no dynamics or contacts yet.
+samples).  They are data files, read here by path: the kinematic tree,
+the links' masses, centres of mass and inertias, the joints' effort,
+velocity, damping and friction, and each link's collision geometry
+(primitives, or convex support points stored in the NPZ under the geom's
+``points_key``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,28 @@ class MimicSpec:
 
 
 @dataclasses.dataclass
+class GeomSpec:
+    kind: str                      # "box" | "cylinder" | "sphere" | "capsule" | "points"
+    origin_pos: np.ndarray         # (3,) in link frame
+    origin_rot: np.ndarray         # (3, 3)
+    size: Optional[np.ndarray] = None    # box: full extents; cyl: [r, l]; sphere: [r]
+    points: Optional[np.ndarray] = None  # "points": (K, 3) convex support pts
+
+
+@dataclasses.dataclass
+class LinkSpec:
+    name: str
+    mass: float = 0.0
+    com_pos: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3))
+    com_rot: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.eye(3))
+    inertia: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((3, 3)))
+    collisions: List[GeomSpec] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class JointSpec:
     name: str
     jtype: int
@@ -41,20 +66,45 @@ class JointSpec:
     axis: np.ndarray               # (3,)
     limit_lower: float = -np.inf
     limit_upper: float = np.inf
+    effort: float = np.inf
+    velocity: float = np.inf
+    damping: float = 0.0
+    friction: float = 0.0
     mimic: Optional[MimicSpec] = None
 
 
 @dataclasses.dataclass
 class RobotSpec:
     name: str
-    link_names: List[str]          # document order
+    links: List[LinkSpec]          # document order
     joints: List[JointSpec]        # document order (= SAPIEN qpos order)
+
+    @property
+    def link_names(self) -> List[str]:
+        return [l.name for l in self.links]
+
+
+def _geom_from_json(d: dict, npz) -> GeomSpec:
+    return GeomSpec(
+        kind=d["kind"],
+        origin_pos=np.asarray(d["origin_pos"]),
+        origin_rot=np.asarray(d["origin_rot"]).reshape(3, 3),
+        size=np.asarray(d["size"]) if "size" in d else None,
+        points=np.asarray(npz[d["points_key"]]) if "points_key" in d else None)
 
 
 def load_robot_spec(name: str, spec_dir: Optional[str] = None) -> RobotSpec:
     spec_dir = spec_dir or constants.ROBOT_SPEC_DIR
     with open(os.path.join(spec_dir, f"{name}.json")) as f:
         data = json.load(f)
+    with np.load(os.path.join(spec_dir, f"{name}_geom.npz")) as npz:
+        links = [LinkSpec(
+            name=lj["name"], mass=lj["mass"],
+            com_pos=np.asarray(lj["com_pos"]),
+            com_rot=np.asarray(lj["com_rot"]).reshape(3, 3),
+            inertia=np.asarray(lj["inertia"]).reshape(3, 3),
+            collisions=[_geom_from_json(g, npz) for g in lj["collisions"]])
+            for lj in data["links"]]
     joints = []
     for jj in data["joints"]:
         mimic = MimicSpec(**jj["mimic"]) if "mimic" in jj else None
@@ -65,10 +115,11 @@ def load_robot_spec(name: str, spec_dir: Optional[str] = None) -> RobotSpec:
             origin_rot=np.asarray(jj["origin_rot"]).reshape(3, 3),
             axis=np.asarray(jj["axis"]),
             limit_lower=jj["limit"][0], limit_upper=jj["limit"][1],
+            effort=jj["effort"] if jj["effort"] is not None else np.inf,
+            velocity=jj["velocity"] if jj["velocity"] is not None else np.inf,
+            damping=jj["damping"], friction=jj["friction"],
             mimic=mimic))
-    return RobotSpec(name=data["name"],
-                     link_names=[lj["name"] for lj in data["links"]],
-                     joints=joints)
+    return RobotSpec(name=data["name"], links=links, joints=joints)
 
 
 def load_surface_points(name: str, spec_dir: Optional[str] = None

@@ -1,0 +1,133 @@
+"""Random-action closed-loop rollout (port of
+gsworld_tpu/rollout/random_actions.py): build the env and its GS wrapper,
+roll random actions for ``ep_len`` steps and measure the closed-loop rate
+(env steps per second including the GS render across all envs).
+
+    python -m gsworld_tpu_torch.rollout.random_actions -n 4 --ep_len 30
+
+Runs on the card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+
+def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
+          control_freq: int, width: int, height: int,
+          synthetic_scale: float = 1.0, obs_mode: str = "rgb",
+          max_tiles_per_gaussian: int = 64, tile: int = 32,
+          max_entries: int = 1 << 19, device="cuda", graph: bool = True):
+    """-> (env, wrapper).  ``graph`` captures the env's physics step into
+    a CUDA graph (ignored on the CPU)."""
+    from gsworld_tpu_torch import envs
+    from gsworld_tpu_torch.render.camera import RasterConfig
+    from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
+
+    env = envs.make(env_id, num_envs=num_envs, obs_mode=obs_mode,
+                    sim_config=dict(sim_freq=sim_freq,
+                                    control_freq=control_freq),
+                    device=device, graph=graph)
+    env.cameras = [dataclasses.replace(c, width=width, height=height)
+                   for c in env.cameras]
+    sizes = dict(
+        n_background=int(120_000 * synthetic_scale),
+        n_per_link=int(6_000 * synthetic_scale),
+        n_per_object=int(6_000 * synthetic_scale))
+    wrapper = GSWorldWrapper(
+        env, cfg_name,
+        raster_config=RasterConfig(
+            width=width, height=height, tile=tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            max_entries=max_entries),
+        synthetic_sizes=sizes, device=device)
+    return env, wrapper
+
+
+def _host_read(obs, env) -> np.ndarray:
+    """The first camera's frames on the host: ends every queued kernel."""
+    return obs["sensor_data"][env.cameras[0].name]["rgb"].cpu().numpy()
+
+
+def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
+                use_scan: bool = False, shard: bool = False,
+                on_timed_start=None):
+    """Run the closed loop and return (env-steps/s, seconds per step, the
+    last frames of the first camera (B, H, W, 3) uint8).
+
+    The loop is eager on the host, as a user's is; the env's physics step
+    replays its CUDA graph when the env was built with ``graph=True``.
+    The clock stops after a synchronize and a host read of the last frame.
+    ``use_scan`` asks for that graph path and raises where the env was
+    built without it; ``shard`` (envs split across cards) is not ported.
+    ``on_timed_start()`` is called after the reset and the warm-up steps,
+    just before the clock starts (a caller's counters start there).
+    """
+    env = wrapper.env
+    if shard:
+        raise NotImplementedError("sharding the env axis across cards is "
+                                  "not ported yet")
+    if use_scan and env.device.type == "cuda" and not env.graph:
+        raise ValueError("use_scan asks for the captured physics step: "
+                         "build the env with graph=True")
+    obs, _ = wrapper.reset(seed=seed)
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    for _ in range(warmup):
+        obs, *_ = wrapper.step(env.action_space_sample(gen))
+    _host_read(obs, env)
+    if env.device.type == "cuda":
+        torch.cuda.synchronize()
+    if on_timed_start is not None:
+        on_timed_start()
+    t0 = time.perf_counter()
+    for _ in range(ep_len):
+        obs, *_ = wrapper.step(env.action_space_sample(gen))
+    if env.device.type == "cuda":
+        torch.cuda.synchronize()
+    frames = _host_read(obs, env)
+    dt = time.perf_counter() - t0
+    return ep_len * env.num_envs / dt, dt / ep_len, frames
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--env_id", "-e", default="AlignFr3Env-v1")
+    p.add_argument("--cfg_name", default="fr3_align")
+    p.add_argument("--num_envs", "-n", type=int, default=1)
+    p.add_argument("--ep_len", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sim_freq", type=int, default=120)
+    p.add_argument("--control_freq", type=int, default=40)
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--synthetic_scale", type=float, default=1.0)
+    p.add_argument("--scan", action="store_true",
+                   help="require the captured (CUDA graph) physics step")
+    p.add_argument("--no_graph", action="store_true",
+                   help="step the physics eagerly")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--save_video_dir", default=None)
+    args = p.parse_args(argv)
+
+    env, wrapper = build(args.env_id, args.num_envs, args.cfg_name,
+                         args.sim_freq, args.control_freq, args.width,
+                         args.height, args.synthetic_scale,
+                         device=args.device, graph=not args.no_graph)
+    fps, spf, frames = rollout_fps(wrapper, args.ep_len, args.seed,
+                                   use_scan=args.scan)
+    print(f"FPS: {fps:.2f} (env-steps/s incl. GS render, "
+          f"{args.num_envs} envs, {spf*1000:.1f} ms/step)")
+    if args.save_video_dir:
+        import os
+        os.makedirs(args.save_video_dir, exist_ok=True)
+        np.save(os.path.join(args.save_video_dir, "last_frames.npy"), frames)
+    return fps
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,10 @@
-"""GSWorldRenderer: the GS render half of the env step (port of
-gsworld_tpu/wrapper/gs_env.py:GSWorldWrapper, render path).
+"""GSWorldWrapper: photorealistic GS rendering in the env step, and the
+GSWorldRenderer it owns (port of gsworld_tpu/wrapper/gs_env.py).
+
+``GSWorldWrapper(env, cfg_name)`` steps the env's physics and renders the
+new state: ``obs["sensor_data"][cam]["rgb"]`` (and ``"segmentation"``)
+beside the env's own observation.  ``GSWorldRenderer`` renders any batched
+pose state handed to it.
 
 Per render, for B envs x C cameras in ONE batched path:
 
@@ -21,6 +26,7 @@ segmentation in ``env.obs_mode`` an int16 ``segmentation`` (B, H, W, 1).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -141,16 +147,33 @@ class GSWorldRenderer:
             s[:, self.obj_slot] = scale * self.obj_scale * a_scale[:, ai]
         return SlotTransforms(R=R, t=t, scale=s, apply_scale=self.apply_scale)
 
+    def _config_for(self, cameras):
+        """The raster configuration of a render through ``cameras``: the
+        sensor cameras (None) must have its size, other cameras (the human
+        view) bring their own."""
+        cfg = self.raster_config
+        if cameras is None:
+            cam = self.env.cameras[0]
+            if (cam.width, cam.height) != (cfg.width, cfg.height):
+                raise ValueError("raster_config size differs from the "
+                                 "cameras'")
+            return cfg
+        sizes = {(c.width, c.height) for c in cameras}
+        if len(sizes) != 1:
+            raise ValueError("cameras of one render must share one size, "
+                             f"got {sorted(sizes)}")
+        (w, h), = sizes
+        return dataclasses.replace(cfg, width=w, height=h)
+
     @torch.no_grad()
-    def frames(self, poses: EnvPoses):
+    def frames(self, poses: EnvPoses, cameras=None):
         """FK, slot transforms, repose and camera bridge of ``poses`` ->
         (posed Gaussians (B, 1, N, ...), GS cameras (B, C)), which
-        broadcast to the B x C frames of one render."""
+        broadcast to the B x C frames of one render.  ``cameras`` default
+        to the env's sensor cameras."""
         env = self.env
-        cams = env.cameras
-        cfg = self.raster_config
-        if (cams[0].width, cams[0].height) != (cfg.width, cfg.height):
-            raise ValueError("raster_config size differs from the cameras'")
+        cams = env.cameras if cameras is None else cameras
+        cfg = self._config_for(cameras)
         with record_function("gsw.pose"):
             link_pos, link_quat = forward_kinematics(
                 env.agent.model, poses.qpos, poses.root_pos, poses.root_quat)
@@ -158,23 +181,22 @@ class GSWorldRenderer:
                                          poses.a_quat, poses.a_scale)
             posed = repose_scene(self.scene, slots)              # (B, N, ...)
             ext = env.camera_extrinsics_cv(
-                poses, link_pose=(link_pos, link_quat))          # (B, C, 4, 4)
-            K = torch.as_tensor(np.stack([np.asarray(c.intrinsic, np.float32)
-                                          for c in cams]),
-                                device=ext.device)               # (C, 3, 3)
+                poses, cams, link_pose=(link_pos, link_quat))    # (B, C, 4, 4)
+            K = env.camera_intrinsics(cams, ext.device)          # (C, 3, 3)
             gs_cams = cam_maniskill2gs(ext, K, cfg.width, cfg.height,
                                        self.rigid_sim2real,
                                        self.scale_sim2real)
         return type(posed)(*(x[:, None] for x in posed)), gs_cams
 
     @torch.no_grad()
-    def render(self, poses: EnvPoses) -> dict:
-        """Render every env of ``poses`` through every sensor camera."""
+    def render(self, poses: EnvPoses, cameras=None) -> dict:
+        """Render every env of ``poses`` through every sensor camera, or
+        through ``cameras`` (then without segmentation)."""
         env = self.env
-        cams = env.cameras
-        cfg = self.raster_config
-        posed_bc, gs_cams = self.frames(poses)
-        want_seg = "segmentation" in env.obs_mode
+        cams = env.cameras if cameras is None else cameras
+        cfg = self._config_for(cameras)
+        posed_bc, gs_cams = self.frames(poses, cameras)
+        want_seg = cameras is None and "segmentation" in env.obs_mode
         out = gs_render(posed_bc, gs_cams, cfg, self.scene.sh0,
                         self.scene.shN,
                         semantics=self.scene.semantics if want_seg else None)
@@ -187,3 +209,75 @@ class GSWorldRenderer:
                 result[cam.name]["segmentation"] = (
                     out["seg"][:, ci, :, :, None].to(torch.int16))
         return result
+
+
+def world_poses(world) -> EnvPoses:
+    """The pose state the render reads, of a WorldState."""
+    return EnvPoses(qpos=world.qpos, a_pos=world.a_pos, a_quat=world.a_quat,
+                    root_pos=world.root_pos, root_quat=world.root_quat,
+                    a_scale=world.a_scale)
+
+
+class GSWorldWrapper:
+    """Wraps a GsBaseEnv; obs['sensor_data'][cam]['rgb'] becomes the GS
+    render (uint8, (B, H, W, 3)) of the state after each reset and step,
+    with an int16 'segmentation' (B, H, W, 1) when the env's obs_mode asks
+    for it.  Attributes it does not define are the env's."""
+
+    def __init__(self, env: GsBaseEnv, scene_gs_cfg_name: str,
+                 raster_config: Optional[RasterConfig] = None,
+                 asset_dir: Optional[str] = None,
+                 cfg_dir: Optional[str] = None,
+                 synthetic_sizes: Optional[dict] = None,
+                 device=None):
+        self.env = env
+        self.num_envs = env.num_envs
+        self.scene_gs_cfg_name = scene_gs_cfg_name
+        device = env.device if device is None else torch.device(device)
+        if device != env.device:
+            raise ValueError(f"the env steps on {env.device}, the wrapper "
+                             f"was asked to render on {device}")
+        self.renderer = GSWorldRenderer(
+            env, scene_gs_cfg_name, raster_config=raster_config,
+            synthetic_sizes=synthetic_sizes, asset_dir=asset_dir,
+            cfg_dir=cfg_dir, device=device)
+        self.raster_config = self.renderer.raster_config
+
+    def _render_fn(self, state, cameras=None) -> dict:
+        with record_function("gsw.closed_loop.render"):
+            return self.renderer.render(world_poses(state.world), cameras)
+
+    def _step_and_render(self, state, action):
+        with record_function("gsw.closed_loop.physics"):
+            (state, obs, reward, terminated, truncated,
+             info) = self.env._step_fn(state, action)
+        obs = dict(obs)
+        obs["sensor_data"] = self._render_fn(state)
+        return state, obs, reward, terminated, truncated, info
+
+    def reset(self, seed: Optional[int] = None,
+              options: Optional[dict] = None):
+        obs, info = self.env.reset(seed=seed, options=options)
+        obs = dict(obs)
+        obs["sensor_data"] = self._render_fn(self.env._state)
+        return obs, info
+
+    def step(self, action):
+        (self.env._state, obs, reward, terminated, truncated,
+         info) = self._step_and_render(self.env._state,
+                                       self.env._as_action(action))
+        return obs, reward, terminated, truncated, info
+
+    def render_current_step(self) -> dict:
+        """Render without stepping."""
+        return self._render_fn(self.env._state)
+
+    def render(self) -> torch.Tensor:
+        """Human render view: the GS render of the third-person camera,
+        uint8 (B, H, W, 3)."""
+        out = self._render_fn(self.env._state,
+                              cameras=self.env.human_render_cameras)
+        return next(iter(out.values()))["rgb"]
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)

@@ -1,0 +1,176 @@
+"""The closed loop as a whole: three steps of AlignFr3Env-v1 through the
+port's GSWorldWrapper against the JAX GSWorldWrapper (2 envs, 160x120, a
+small synthetic scene, the Pallas kernels in interpret mode), from the
+same bridged state with the same actions: every frame >= 40 dB (uint8
+PSNR; the JAX render quantizes colour to 10 bits and breaks depth
+near-ties differently), segmentation agreement >= 99.9%; and the same
+loop with JAX unavailable.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gsworld_tpu import envs as jenvs
+from gsworld_tpu.render.camera import RasterConfig as JCfg
+from gsworld_tpu.wrapper.gs_env import GSWorldWrapper as JWrapper
+from gsworld_tpu_torch.envs.base import env_state_from_numpy
+from gsworld_tpu_torch.rollout.random_actions import build, rollout_fps
+from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
+from torch_physics_common import (
+    one_torch_thread,  # noqa: F401 (autouse fixture)
+    jax_world_to_numpy,
+    rel_err,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+W, H, B = 160, 120, 2
+SCALE = 0.02
+STEPS = 3
+RASTER = dict(width=W, height=H, tile=32, max_tiles_per_gaussian=64,
+              max_entries=16384, cull_alpha=True)
+
+
+def _psnr_u8(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+@pytest.fixture(scope="module")
+def loops():
+    """Both wrappers stepped STEPS times from the JAX env's reset state."""
+    jenv = jenvs.make("AlignFr3Env-v1", num_envs=B,
+                      obs_mode="rgb+segmentation")
+    jenv.cameras = [dataclasses.replace(c, width=W, height=H)
+                    for c in jenv.cameras]
+    jw = JWrapper(jenv, "fr3_align",
+                  raster_config=JCfg(backend="pallas", **RASTER),
+                  synthetic_sizes=dict(n_background=int(120_000 * SCALE),
+                                       n_per_link=int(6_000 * SCALE),
+                                       n_per_object=int(6_000 * SCALE)))
+    jenv.reset(seed=2)
+    js = jenv.state
+    tenv, tw = build("AlignFr3Env-v1", B, "fr3_align", 120, 40, W, H,
+                     synthetic_scale=SCALE, obs_mode="rgb+segmentation",
+                     tile=32, max_tiles_per_gaussian=64, max_entries=16384,
+                     device="cpu")
+    tenv.reset(seed=0)
+    tenv._state = env_state_from_numpy(dict(
+        world=jax_world_to_numpy(js.world), elapsed=np.asarray(js.elapsed),
+        prev_target=np.asarray(js.prev_target), task={}), device="cpu")
+    rng = np.random.default_rng(9)
+    frames = []
+    for _ in range(STEPS):
+        a = rng.uniform(-1, 1, (B, 8)).astype(np.float32)
+        jout = jw.step(jnp.asarray(a))
+        tout = tw.step(a)
+        frames.append((jout, tout))
+    return jenv, tenv, tw, frames
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+@pytest.mark.parametrize("cam", ["wrist_cam", "right_cam"])
+def test_frames_match_jax_wrapper(loops, step, cam):
+    _, _, _, frames = loops
+    jobs, tobs = frames[step][0][0], frames[step][1][0]
+    assert set(tobs["sensor_data"]) == {"wrist_cam", "right_cam"}
+    rgb = tobs["sensor_data"][cam]["rgb"].numpy()
+    seg = tobs["sensor_data"][cam]["segmentation"].numpy()
+    jrgb = np.asarray(jobs["sensor_data"][cam]["rgb"])
+    jseg = np.asarray(jobs["sensor_data"][cam]["segmentation"])
+    assert rgb.shape == jrgb.shape == (B, H, W, 3) and rgb.dtype == jrgb.dtype
+    assert seg.shape == jseg.shape == (B, H, W, 1) and seg.dtype == jseg.dtype
+    assert rgb.std() > 5.0, "constant image"
+    for e in range(B):
+        p = _psnr_u8(rgb[e], jrgb[e])
+        assert p >= 40.0, f"step {step} {cam} env {e}: PSNR {p:.1f} dB"
+    agree = np.mean(seg == jseg)
+    assert agree >= 0.999, f"segmentation agreement {agree:.5f}"
+
+
+def test_state_and_step_outputs_match(loops):
+    jenv, tenv, _, frames = loops
+    (jobs, jr, jterm, jtrunc, jinfo), (tobs, tr, tterm, ttrunc, tinfo) = \
+        frames[-1]
+    for f in ("qpos", "a_pos", "a_quat"):
+        assert rel_err(getattr(tenv.state.world, f).numpy(),
+                       getattr(jenv.state.world, f)) <= 1e-4, f
+    assert set(tobs) == set(jobs)
+    assert np.abs(tr.numpy() - np.asarray(jr)).max() <= 1e-4
+    for k in jinfo:
+        np.testing.assert_array_equal(tinfo[k].numpy(), np.asarray(jinfo[k]))
+    assert int(tenv.state.elapsed[0]) == STEPS
+
+
+def test_frames_follow_the_state(loops):
+    _, tenv, tw, _ = loops
+    before = tw.render_current_step()["right_cam"]["rgb"].clone()
+    w = tenv.state.world
+    a_pos = w.a_pos.clone()
+    a_pos[0, 0, 1] -= 0.05
+    tenv._state = tenv.state.replace(world=w.replace(a_pos=a_pos))
+    after = tw.render_current_step()["right_cam"]["rgb"]
+    tenv._state = tenv.state.replace(world=w)
+    changed = (before != after).any(dim=-1).flatten(1).sum(dim=1)
+    assert int(changed[0]) > 20 and int(changed[1]) == 0
+
+
+def test_wrapper_surface(loops):
+    _, tenv, tw, _ = loops
+    assert isinstance(tw, GSWorldWrapper)
+    assert tw.num_envs == B and tw.action_dim == 8       # forwarded
+    assert tw.agent is tenv.agent
+    human = tw.render()
+    assert human.shape == (B, 480, 640, 3) and human.dtype == torch.uint8
+    obs, info = tw.reset(seed=1)
+    assert info == {} and "sensor_data" in obs and "agent" in obs
+    fps, spf, last = rollout_fps(tw, 1, seed=0, warmup=0)
+    assert fps > 0 and last.shape == (B, H, W, 3) and last.dtype == np.uint8
+    with pytest.raises(NotImplementedError, match="shard"):
+        rollout_fps(tw, 1, shard=True)
+    with pytest.raises(ValueError, match="renders on|render on"):
+        GSWorldWrapper(tenv, "fr3_align", device="meta")
+
+
+def test_closed_loop_runs_without_jax():
+    """The port imports neither jax nor gsworld_tpu: the closed loop in a
+    subprocess where importing jax fails."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np, torch
+        from gsworld_tpu_torch.rollout.random_actions import main, build
+        env, w = build("AlignFr3Env-v1", 2, "fr3_align", 120, 40, 64, 48,
+                       synthetic_scale=0.003, obs_mode="rgb+segmentation",
+                       device="cpu")
+        obs, _ = w.reset(seed=0)
+        z0 = env.state.world.a_pos.clone()
+        for _ in range(2):
+            obs, r, term, trunc, info = w.step(env.action_space_sample())
+        assert obs["sensor_data"]["right_cam"]["rgb"].shape == (2, 48, 64, 3)
+        assert obs["sensor_data"]["right_cam"]["segmentation"].dtype \\
+            == torch.int16
+        assert torch.isfinite(env.state.world.qpos).all()
+        assert not torch.equal(env.state.world.qpos[:, :7],
+                               obs["agent"]["qpos"][:, :7] * 0)
+        fps = main(["-n", "1", "--ep_len", "1", "--width", "64", "--height",
+                    "48", "--synthetic_scale", "0.003", "--device", "cpu"])
+        assert fps > 0
+        bad = [m for m in sys.modules
+               if m == "gsworld_tpu" or m.startswith("gsworld_tpu.")
+               or m == "flax" or m.startswith("flax.")]
+        assert not bad, bad
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("OK")
