@@ -5,7 +5,8 @@ kernel against its plain PyTorch version at the shapes of its path, then
 drives the GS render half of the AlignFr3 step (GSWorldRenderer.render),
 3DGS training (real2sim.pipeline.train_from_colmap_model), the physics
 step of AlignFr3Env-v1 and the closed loop (rollout.random_actions) at
-full size and reports their speed.
+full size, then the end-effector control modes, the other six tasks and
+the xArm closed loop with domain randomization, and reports their speed.
 
     python3 chip_smoke.py
 
@@ -52,10 +53,21 @@ Phases (each prints a line; any failure exits non-zero before a result):
               envs x 2 cameras 640x480 for 30 steps, at 1 env, and at 64
               envs for 3 steps; split into physics and render by CUDA
               events; launch counts; the frames follow a moved can
-The lines before the JSON lines repeat the train, render-step, physics
-and closed-loop lines; the second-to-last line is the kernels JSON, the
-last the device JSON.  Long outputs (profile, ptxas report) go to
-chiprun_out/.
+  6d. more    AlignFr3Env-v1 at 4 envs in pd_ee_delta_pos and
+              pd_ee_delta_pose (IK inside the captured step): eager and
+              graph steps, graph vs eager bit for bit (WorldState and
+              prev_target), one step card vs CPU; every other task at 4
+              envs: reset(seed) card == CPU bit for bit, 3 steps card vs
+              CPU, flags and task state; AlignXArmEnv-v1 with domain
+              randomization through rollout.random_actions at 4 envs x 2
+              cameras 640x480 (the xarm6_align scene at the bench sizes),
+              one emit and one compositor launch per step; both kernels
+              vs plain on its 8 tinted frames; the tint moves only pixels
+              the objects reach
+The lines before the JSON lines repeat the train, render-step, physics,
+closed-loop, EE-mode and xArm-loop lines; the second-to-last line is the
+kernels JSON, the last the device JSON.  Long outputs (profile, ptxas
+report) go to chiprun_out/.
 """
 
 import dataclasses
@@ -103,6 +115,12 @@ PHYS_VEL_TOL = 1e-3
 REST_STEPS = 40
 LOOP_STEPS = 30
 LOOP_STEPS_64 = 3
+EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose")
+OTHER_TASKS = ("PnpBoxFr3Env-v1", "PourMustardFr3Env-v1", "StackFr3Env-v1",
+               "AlignXArmEnv-v1", "BananaRotationXArmEnv-v1",
+               "SpoonOnBoardXArmEnv-v1")
+TASK_STEPS = 3
+STATIC_LIN = 0.05       # actor_is_static's threshold = the depenetration cap
 
 # Roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # lane instructions (67 TFLOP/s counts an FMA as two), MUFU operations
@@ -456,16 +474,17 @@ def emit_bound(cnt, E):
     return bound_of(50 * int(cnt.sum()), emitting, nbytes)
 
 
-def render_inputs(renderer, state):
+def render_inputs(renderer, state, tint=None):
     """Projections of every frame (env x camera) of one render step, as
-    the render path builds them -> (Projected (F, N, ...), leading
-    shape)."""
+    the render path builds them (colours times the per-Gaussian ``tint``
+    (B, N, 3) where given) -> (Projected (F, N, ...), leading shape)."""
     import torch
     from gsworld_tpu_torch.render.rasterize import project_frames
     with torch.no_grad():
         posed, cams = renderer.frames(state)
         return project_frames(posed, cams, renderer.raster_config,
-                              renderer.scene.sh0, renderer.scene.shN)
+                              renderer.scene.sh0, renderer.scene.shN,
+                              None if tint is None else tint[:, None])
 
 
 def train_inputs(setup):
@@ -496,7 +515,7 @@ def entry_counts(ends):
     return torch.diff(ends, dim=-1, prepend=torch.zeros_like(ends[:, :1]))
 
 
-def check_emit(phase, what, plan, cfg):
+def check_emit(phase, what, plan, cfg, timed=True):
     """Emit kernel vs its plain version on the plan_emit result ``plan``
     (keys equal except within CULL_BORDER of the cull threshold, ids
     equal, starts and entry order equal after the sort), a line on what
@@ -546,6 +565,8 @@ def check_emit(phase, what, plan, cfg):
         f"{(E - kept).tolist()}, live entries after the cull "
         f"{starts_k[:, T].tolist()}, overflow {plan.overflow.tolist()}; "
         f"{n_flip} borderline cull flips, max |starts diff| {d_starts}")
+    if not timed:
+        return None, gaus_k, starts_k
     # the bound is tens of microseconds: the back-to-back clock and the
     # profiler read the kernel, one wrapper call between two events reads
     # the host's checks, allocations and ctypes call with it
@@ -571,22 +592,24 @@ def check_emit(phase, what, plan, cfg):
     return entry, gaus_k, starts_k
 
 
-def phase_kernels(renderer, state):
+def phase_kernels(renderer, state, phase=3, tint=None, timed=True):
     """Emit and compositor kernels vs plain versions on the frames of one
     render step (every env x camera), with the inputs the render path
-    builds for them."""
+    builds for them (tinted by ``tint`` where given).  ``timed`` adds the
+    times, the bounds and the worst pixel."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.render.binning import plan_emit
 
     cfg = renderer.raster_config
-    proj, lead = render_inputs(renderer, state)
+    proj, lead = render_inputs(renderer, state, tint)
     with torch.no_grad():
         plan = plan_emit(proj, cfg)
     a = plan.args
     F = proj.depth.shape[0]
+    what = f"{F} {'tinted ' if tint is not None else ''}render frames"
     emit_entry, gaus_k, starts_k = check_emit(
-        3, f"{F} render frames {tuple(lead)}", plan, cfg)
+        phase, f"{what} {tuple(lead)}", plan, cfg, timed=timed)
 
     sem = renderer.scene.semantics
     comp_args = (starts_k, gaus_k, proj.mean2d, proj.conic, proj.opacity,
@@ -616,13 +639,15 @@ def phase_kernels(renderer, state):
         raise AssertionError(f"composite: rgb err {rgb_err:.3g}, T err "
                              f"{t_err:.3g} ({n_excused} stop flips "
                              f"excused), seg mismatch {seg_mis:.4%}")
-    log(f"phase 3 composite, {F} frames: records equal the plain gather "
+    log(f"phase {phase} composite, {what}: records equal the plain gather "
         f"(log opacity to 2 ulps); max |rgb| err {rgb_err:.3g}, max |T| err "
         f"{t_err:.3g} over all but {n_excused} stop-flip pixels (per frame "
         f"{excused.flatten(1).sum(1).tolist()}), seg mismatch "
         f"{seg_mis:.4%} (tolerance {RGB_TOL}, {SEG_MISMATCH_MAX:.1%}); per "
         f"frame |rgb| {[float(f'{x:.3g}') for x in rgb_f.tolist()]}, |T| "
         f"{[float(f'{x:.3g}') for x in t_f.tolist()]}")
+    if not timed:
+        return None
     log("phase 3 composite " + worst_pixel(
         ik, tk, ip, tp, excused, starts_k, gaus_k, proj.mean2d, proj.conic,
         proj.opacity, cfg.tile, cfg.width))
@@ -1084,10 +1109,11 @@ def phase_small_train():
 # ---------------------------------------------------------------------- #
 
 
-def make_env(num_envs, device, graph, obs_mode="state_dict"):
+def make_env(num_envs, device, graph, obs_mode="state_dict",
+             env_id="AlignFr3Env-v1", **kw):
     from gsworld_tpu_torch import envs
-    return envs.make("AlignFr3Env-v1", num_envs=num_envs, obs_mode=obs_mode,
-                     device=device, graph=graph)
+    return envs.make(env_id, num_envs=num_envs, obs_mode=obs_mode,
+                     device=device, graph=graph, **kw)
 
 
 def seeded_actions(env, n, seed=SEED):
@@ -1106,6 +1132,51 @@ def world_diff(a, b):
         x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
         out[f] = (torch.equal(x, y), float((x - y).abs().max()))
     return out
+
+
+def card_vs_cpu(env, cpu_env, a, what):
+    """One control step of ``env``'s state on the card and on the CPU:
+    positions within PHYS_POS_TOL, velocities within PHYS_VEL_TOL; prints
+    every field's difference and what is left of contact_lam's once each
+    patch's rows are matched by position (ROADMAP C13)."""
+    from gsworld_tpu_torch.physics.world import (world_state_from_numpy,
+                                                  world_state_to_numpy)
+    start = world_state_to_numpy(env.state.world)
+    w_card, _ = env._physics_eager(env.state.world, env.state.prev_target, a)
+    w_cpu, _ = cpu_env._physics_eager(
+        world_state_from_numpy(start, device="cpu"),
+        env.state.prev_target.cpu(), a.cpu())
+    d = {f: v[1] for f, v in world_diff(w_card, w_cpu).items()}
+    pos_err = max(d["qpos"], d["a_pos"])
+    vel_err = max(d["qvel"], d["a_lin"], d["a_ang"])
+    if not (pos_err <= PHYS_POS_TOL and vel_err <= PHYS_VEL_TOL):
+        raise AssertionError(f"physics: card vs CPU after one control step "
+                             f"from {what}: {d}")
+    lam_card = w_card.contact_lam.cpu().numpy()
+    lam_cpu = w_cpu.contact_lam.numpy()
+    matched = match_patch_rows(lam_card, lam_cpu)
+    lam_left = float(abs(matched - lam_cpu).max())
+    log(f"phase 6a card vs CPU, one control step of {NUM_ENVS} envs from "
+        f"{what}: max |diff| qpos/a_pos {pos_err:.3g} (<= {PHYS_POS_TOL}), "
+        f"velocities {vel_err:.3g} (<= {PHYS_VEL_TOL}); all fields "
+        f"{ {k: float(f'{v:.3g}') for k, v in d.items()} }; contact_lam "
+        f"with each patch's rows matched by nearest position: max |diff| "
+        f"{lam_left:.3g} of max |lam| {float(abs(lam_cpu).max()):.3g} "
+        f"({int((matched != lam_card).any(-1).sum())} rows reordered)")
+
+
+def match_patch_rows(got, want, R=6):
+    """Reorder each contact patch's R rows of ``got`` (B, C, 6) to the
+    order of ``want`` by nearest contact position (columns 3-5): rows
+    that tie to the last bit may come out of the patch reduction in
+    another order on another device."""
+    import numpy as np
+    Bn, Cn, _ = got.shape
+    g = got.reshape(Bn, Cn // R, R, 6)
+    w = want.reshape(Bn, Cn // R, R, 6)
+    d = np.linalg.norm(w[..., :, None, 3:] - g[..., None, :, 3:], axis=-1)
+    idx = d.argmin(axis=-1)
+    return np.take_along_axis(g, idx[..., None], axis=2).reshape(got.shape)
 
 
 def check_finite(world, what):
@@ -1135,12 +1206,12 @@ def count_kernels(step, n=3):
     return k / n if k else None
 
 
-def physics_steps(B, graph):
+def physics_steps(B, graph, **kw):
     """reset(SEED), two warm-up steps, then PHYS_STEPS timed env.step of
     seeded random actions -> (env, ms per step, peak bytes, kernels per
-    step)."""
+    step).  ``kw`` go to the env (another control mode)."""
     import torch
-    env = make_env(B, "cuda", graph)
+    env = make_env(B, "cuda", graph, **kw)
     actions = seeded_actions(env, PHYS_STEPS)
     env.reset(seed=SEED)
     for a in actions[:2]:
@@ -1162,9 +1233,7 @@ def physics_steps(B, graph):
 def phase_physics():
     """6a: the physics step alone, eager and through its CUDA graph."""
     import torch
-    from gsworld_tpu_torch.physics.world import (contact_row_count,
-                                                  world_state_from_numpy,
-                                                  world_state_to_numpy)
+    from gsworld_tpu_torch.physics.world import contact_row_count
     lines = []
     for B in PHYS_ENVS:
         res = {}
@@ -1211,26 +1280,21 @@ def phase_physics():
         f"steps from one state and the same actions: every WorldState "
         f"field bit for bit")
 
-    # ---- one control step, card vs CPU, from the same state
-    start = world_state_to_numpy(eager.state.world)
+    # ---- one control step, card vs CPU, from the same state; and from
+    # the state PR 5 read its contact_lam gap on (its episode drawn by the
+    # card's generator, then the same 10 steps)
     cpu_env = make_env(NUM_ENVS, "cpu", False)
-    a = actions[0]
-    w_card, _ = eager._physics_eager(eager.state.world,
-                                     eager.state.prev_target, a)
-    w_cpu, _ = cpu_env._physics_eager(
-        world_state_from_numpy(start, device="cpu"),
-        eager.state.prev_target.cpu(), a.cpu())
-    d = {f: v[1] for f, v in world_diff(w_card, w_cpu).items()}
-    pos_err = max(d["qpos"], d["a_pos"])
-    vel_err = max(d["qvel"], d["a_lin"], d["a_ang"])
-    if not (pos_err <= PHYS_POS_TOL and vel_err <= PHYS_VEL_TOL):
-        raise AssertionError(f"physics: card vs CPU after one control step "
-                             f"{d}")
-    log(f"phase 6a card vs CPU, one control step of {NUM_ENVS} envs from "
-        f"the state after {GRAPH_STEPS} steps: max |diff| qpos/a_pos "
-        f"{pos_err:.3g} (<= {PHYS_POS_TOL}), velocities {vel_err:.3g} (<= "
-        f"{PHYS_VEL_TOL}); all fields "
-        f"{ {k: float(f'{v:.3g}') for k, v in d.items()} }")
+    card_vs_cpu(eager, cpu_env, actions[0],
+                f"the state after {GRAPH_STEPS} steps")
+    old = make_env(NUM_ENVS, "cuda", False)
+    old._state = old._reset_fn(torch.rand(
+        (NUM_ENVS, old.episode_draws), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(SEED + 3)))[0]
+    for a in actions:
+        old.step(a)
+    card_vs_cpu(old, cpu_env, actions[0],
+                f"PR 5's state (episode from the card's generator, "
+                f"{GRAPH_STEPS} steps)")
 
     # ---- profile by stage (eager: the ranges mark the launches)
     env_e, env_g = keep[False][0], keep[True][0]
@@ -1379,6 +1443,257 @@ def check_frames_follow_state(wrapper):
         f"of the other envs'")
 
 
+# ---------------------------------------------------------------------- #
+# Phase 6d: end-effector control, the other tasks, the xArm closed loop
+# ---------------------------------------------------------------------- #
+
+
+def phase_ee_modes():
+    """6d: AlignFr3Env-v1 at 4 envs in both end-effector modes (IK inside
+    the captured step): eager and graph steps, graph vs eager bit for bit
+    (every WorldState field and prev_target), one step card vs CPU."""
+    import torch
+    from gsworld_tpu_torch.physics.world import (world_state_from_numpy,
+                                                  world_state_to_numpy)
+    lines = []
+    for mode in EE_MODES:
+        res = {g: physics_steps(NUM_ENVS, g, control_mode=mode)
+               for g in (False, True)}
+        if res[True][0]._physics_graph is None:
+            raise AssertionError(f"{mode}: stepped without a captured graph")
+        parts = []
+        for graph, name in ((False, "eager"), (True, "graph")):
+            _, ms, peak, kernels = res[graph]
+            med = statistics.median(ms)
+            parts.append(
+                f"{name} {med:.3f} ms per control step (median of {len(ms)}; "
+                f"min {min(ms):.3f}, max {max(ms):.3f}), "
+                + ("kernels per step not measured" if kernels is None
+                   else f"{kernels:.0f} kernels per step")
+                + f", peak memory {peak / 2**30:.3f} GiB")
+        eager = make_env(NUM_ENVS, "cuda", False, control_mode=mode)
+        graphed = make_env(NUM_ENVS, "cuda", True, control_mode=mode)
+        actions = seeded_actions(eager, GRAPH_STEPS, seed=SEED + 7)
+        eager.reset(seed=SEED + 3)
+        graphed.reset(seed=SEED + 3)
+        for i, a in enumerate(actions):
+            eager.step(a)
+            graphed.step(a)
+            d = world_diff(eager.state.world, graphed.state.world)
+            bad = {f: v[1] for f, v in d.items() if not v[0]}
+            if not torch.equal(eager.state.prev_target,
+                               graphed.state.prev_target):
+                bad["prev_target"] = float((eager.state.prev_target
+                                            - graphed.state.prev_target)
+                                           .abs().max())
+            if bad:
+                raise AssertionError(f"{mode}: graph and eager differ at "
+                                     f"step {i + 1}: {bad}")
+        cpu_env = make_env(NUM_ENVS, "cpu", False, control_mode=mode)
+        start = world_state_to_numpy(eager.state.world)
+        w_card, t_card = eager._physics_eager(
+            eager.state.world, eager.state.prev_target, actions[0])
+        w_cpu, t_cpu = cpu_env._physics_eager(
+            world_state_from_numpy(start, device="cpu"),
+            eager.state.prev_target.cpu(), actions[0].cpu())
+        d = {f: v[1] for f, v in world_diff(w_card, w_cpu).items()}
+        tgt_err = float((t_card.cpu() - t_cpu).abs().max())
+        pos_err = max(d["qpos"], d["a_pos"], tgt_err)
+        vel_err = max(d["qvel"], d["a_lin"], d["a_ang"])
+        if not (pos_err <= PHYS_POS_TOL and vel_err <= PHYS_VEL_TOL):
+            raise AssertionError(f"{mode}: card vs CPU, targets {tgt_err}, "
+                                 f"{d}")
+        line = (f"phase 6d EE mode {mode}, AlignFr3Env-v1, {NUM_ENVS} envs "
+                f"(12 IK steps inside the step): " + "; ".join(parts)
+                + f"; graph vs eager {GRAPH_STEPS} steps bit for bit in "
+                f"every WorldState field and prev_target; card vs CPU one "
+                f"step: targets {tgt_err:.3g}, qpos/a_pos "
+                f"{max(d['qpos'], d['a_pos']):.3g} (<= {PHYS_POS_TOL}), "
+                f"velocities {vel_err:.3g} (<= {PHYS_VEL_TOL})")
+        log(line)
+        lines.append(line)
+    return lines
+
+
+def speed_ties(world):
+    """(B,) envs where an actor's speed lands on actor_is_static's
+    threshold, which is also the solver's depenetration speed cap: there
+    a "static" flag is decided by the last bit."""
+    import torch
+    speed = torch.linalg.norm(world.a_lin.cpu(), dim=-1)
+    return ((speed - STATIC_LIN).abs() < 1e-6).any(dim=-1)
+
+
+def compare_info(card, cpu, ties, what):
+    """Evaluate flags equal (a "static" flag and success excused only in
+    an env in ``ties``); numbers to 1e-4 of their largest value.
+    -> number of excused flags."""
+    import torch
+    excused = 0
+    for k, v in cpu.items():
+        c = card[k].cpu()
+        if v.dtype == torch.bool:
+            diff = c != v
+            if ("static" in k or k == "success") and not (diff & ~ties).any():
+                excused += int(diff.sum())
+            elif diff.any():
+                raise AssertionError(f"{what}: flag {k} card {c.tolist()} "
+                                     f"CPU {v.tolist()}")
+        elif float((c - v).abs().max()) > 1e-4 * max(
+                float(v.abs().max()), 1.0):
+            raise AssertionError(f"{what}: {k} card {c.tolist()} CPU "
+                                 f"{v.tolist()}")
+    return excused
+
+
+def phase_tasks():
+    """6d: every other registered task at 4 envs: reset(seed) on the card
+    equals reset(seed) on the CPU bit for bit; 3 control steps (the card
+    through its graph) against the CPU; flags and task state agree."""
+    import torch
+    lines = []
+    for env_id in OTHER_TASKS:
+        card = make_env(NUM_ENVS, "cuda", True, env_id=env_id)
+        cpu = make_env(NUM_ENVS, "cpu", False, env_id=env_id)
+        card.reset(seed=SEED)
+        cpu.reset(seed=SEED)
+        for f in ("a_pos", "a_quat", "qpos", "root_pos"):
+            if not torch.equal(getattr(card.state.world, f).cpu(),
+                               getattr(cpu.state.world, f)):
+                raise AssertionError(f"{env_id}: reset(seed) {f} differs "
+                                     f"between the card and the CPU")
+        actions = seeded_actions(cpu, TASK_STEPS, seed=SEED + 5)
+        excused = 0
+        for a in actions:
+            out_card = card.step(a.cuda())
+            out_cpu = cpu.step(a)
+            excused += compare_info(out_card[4], out_cpu[4],
+                                    speed_ties(cpu.state.world), env_id)
+        d = {f: v[1] for f, v in world_diff(card.state.world,
+                                            cpu.state.world).items()}
+        pos_err = max(d["qpos"], d["a_pos"])
+        vel_err = max(d["qvel"], d["a_lin"], d["a_ang"])
+        if not (pos_err <= PHYS_POS_TOL and vel_err <= PHYS_VEL_TOL):
+            raise AssertionError(f"{env_id}: card vs CPU after "
+                                 f"{TASK_STEPS} steps {d}")
+        task = {}
+        for k, v in cpu.state.task.items():
+            c = card.state.task[k].cpu()
+            err = (0.0 if v.dtype == torch.bool and torch.equal(c, v)
+                   else float((c.float() - v.float()).abs().max()))
+            if err > 1e-6:
+                raise AssertionError(f"{env_id}: task state {k} card "
+                                     f"{c.tolist()} CPU {v.tolist()}")
+            task[k] = err
+        if card._physics_graph is None:
+            raise AssertionError(f"{env_id}: no captured graph on the card")
+        line = (f"phase 6d task {env_id}, {NUM_ENVS} envs: reset(seed) card "
+                f"== CPU bit for bit (a_pos, a_quat, qpos, root_pos); after "
+                f"{TASK_STEPS} control steps (card through its graph) max "
+                f"|diff| qpos/a_pos {pos_err:.3g}, velocities {vel_err:.3g}; "
+                f"evaluate flags equal ({excused} static flags excused at "
+                f"the 0.05 m/s speed tie); task state max |diff| {task}")
+        log(line)
+        lines.append(line)
+    return lines
+
+
+def phase_xarm_loop():
+    """6d: AlignXArmEnv-v1 with domain randomization, rgb+segmentation,
+    4 envs x 2 cameras 640x480, the xarm6_align synthetic scene at the
+    bench sizes and raster, through rollout.random_actions."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.rollout.random_actions import build, rollout_fps
+    t0 = time.perf_counter()
+    env, wrapper = build(
+        "AlignXArmEnv-v1", NUM_ENVS, "xarm6_align", 120, 40,
+        BENCH_RASTER["width"], BENCH_RASTER["height"],
+        obs_mode="rgb+segmentation", tile=BENCH_RASTER["tile"],
+        max_tiles_per_gaussian=BENCH_RASTER["max_tiles_per_gaussian"],
+        max_entries=BENCH_RASTER["max_entries"], domain_randomization=True)
+
+    def timed_start():
+        torch.cuda.reset_peak_memory_stats()
+        rc.reset_launch_counts()
+
+    fps, spf, frames = rollout_fps(wrapper, LOOP_STEPS, seed=SEED, warmup=2,
+                                   on_timed_start=timed_start)
+    counts = dict(rc.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("emit_entries", "composite_tiles"):
+        if counts[name] != LOOP_STEPS:
+            raise AssertionError(f"xArm loop: kernel {name} launched "
+                                 f"{counts[name]} times in {LOOP_STEPS} "
+                                 f"steps")
+    cam = env.cameras[0]
+    if frames.shape != (NUM_ENVS, cam.height, cam.width, 3):
+        raise AssertionError(f"xArm loop: frames {frames.shape}")
+    if set(env.state.task) != {"obj_color", "cam_pose_noise"}:
+        raise AssertionError(f"xArm loop: task state {set(env.state.task)}")
+    check_finite(env.state.world, "xArm loop")
+    overflow = int(wrapper.renderer.last_overflow.sum())
+    phys_ms, rend_ms, obs = loop_steps(wrapper, 10)
+    check_outputs(obs["sensor_data"], NUM_ENVS, cam.height, cam.width,
+                  ids_per_camera=False)
+    line = (f"phase 6d xArm closed loop, AlignXArmEnv-v1 with domain "
+            f"randomization, {NUM_ENVS} envs x {len(env.cameras)} cams "
+            f"{cam.width}x{cam.height}, {wrapper.renderer.scene.num_gaussians}"
+            f" Gaussians, {LOOP_STEPS} steps: {fps:.2f} env-steps/s, "
+            f"{1000.0 * spf:.3f} ms per step (host clock); by CUDA events "
+            f"physics + observation {phys_ms:.3f} ms, render {rend_ms:.3f} ms"
+            f" (medians of 10 further steps); overflow {overflow} entries in "
+            f"the last step, peak memory {peak / 2**30:.3f} GiB, launches "
+            f"{counts} in the {LOOP_STEPS} timed steps (built, warmed and run "
+            f"in {time.perf_counter() - t0:.1f} s)")
+    log(line)
+    return counts, line, wrapper
+
+
+def check_tint(wrapper):
+    """6d: zero tint on env 0's objects changes only pixels an object's
+    Gaussians reach (lit in a render with every other Gaussian black),
+    never the segmentation, and no other env's pixels."""
+    import torch
+    from gsworld_tpu_torch import constants
+    from gsworld_tpu_torch.render.rasterize import render as gs_render
+    from gsworld_tpu_torch.wrapper.gs_env import world_poses
+    r, st = wrapper.renderer, wrapper.env.state
+    poses = world_poses(st.world, st.task)
+    with torch.no_grad():
+        posed, cams = r.frames(poses)
+
+        def frame(tint):
+            out = gs_render(posed, cams, r.raster_config, r.scene.sh0,
+                            r.scene.shN, semantics=r.scene.semantics,
+                            color_tint=tint[:, None])
+            return out["rgb"], out["seg"]
+
+        before, seg0 = frame(r.color_tint(poses.obj_color))
+        color = poses.obj_color.clone()
+        color[0] = 0.0
+        after, seg1 = frame(r.color_tint(color))
+        is_obj = torch.isin(r.scene.slot_ids, r.obj_slot).float()
+        lit, _ = frame(is_obj[None, :, None].expand(NUM_ENVS, -1, 3))
+    reached = lit.sum(-1) > 0
+    changed = (before != after).any(-1)
+    ids = torch.tensor([constants.obj_gs_semantics[n] for n in r.gs_objects],
+                       device=seg0.device)
+    on_obj = torch.isin(seg0.long(), ids)
+    outside = int((changed[0] & ~reached[0]).sum())
+    if (changed[1:].any() or outside or not torch.equal(seg0, seg1)
+            or not changed[0].any()):
+        raise AssertionError(f"tint: changed pixels per env "
+                             f"{changed.flatten(1).sum(1).tolist()}, "
+                             f"{outside} outside the objects' reach")
+    log(f"phase 6d tint: zero tint on env 0's objects changes "
+        f"{int(changed[0].sum())} of its pixels, all reached by an object "
+        f"Gaussian ({int(reached[0].sum())} reached; "
+        f"{int((changed[0] & on_obj[0]).sum())} of the changed carry an "
+        f"object's segmentation id, {int((changed[0] & ~on_obj[0]).sum())} "
+        f"the background's); segmentation and the other envs bit for bit")
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -1386,8 +1701,9 @@ def main(argv=None):
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1-3b only and print no result line")
     ap.add_argument("--physics-only", action="store_true",
-                    help="run phases 1, 6a and 6b only (no kernel is "
-                         "built) and print no result line")
+                    help="run phases 1, 6a, 6b and 6d's EE-mode and task "
+                         "rows only (no kernel is built) and print no "
+                         "result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_device()
@@ -1395,6 +1711,8 @@ def main(argv=None):
     if args.physics_only:
         phase_physics()
         phase_rest()
+        phase_ee_modes()
+        phase_tasks()
         return           # a partial run prints no result line
     phase_build()
     t0 = time.perf_counter()
@@ -1425,6 +1743,18 @@ def main(argv=None):
     physics_lines = phase_physics()
     phase_rest()
     loop_counts, loop_lines = phase_closed_loop()
+    ee_lines = phase_ee_modes()
+    task_lines = phase_tasks()
+    xarm_counts, xarm_line, wrapper = phase_xarm_loop()
+    st = wrapper.env.state
+    from gsworld_tpu_torch.wrapper.gs_env import world_poses
+    poses = world_poses(st.world, st.task)
+    phase_kernels(wrapper.renderer, poses, phase="6d",
+                  tint=wrapper.renderer.color_tint(poses.obj_color),
+                  timed=False)
+    check_tint(wrapper)
+    del wrapper, st, poses
+    torch.cuda.empty_cache()
     # launches: the render path's for its kernels, the training path's for
     # the backward (every path's counts are in the lines below); the
     # closed loop's launches of the forward kernels ride along
@@ -1433,9 +1763,10 @@ def main(argv=None):
                          else counts)[k["name"]]
         if k["name"] in loop_counts and k["name"] != "composite_bwd":
             k["closed_loop_launches"] = loop_counts[k["name"]]
+            k["xarm_loop_launches"] = xarm_counts[k["name"]]
     log(train_line)          # repeated here so the end of the log holds them
     log(slice_line)
-    for line in physics_lines + loop_lines:
+    for line in physics_lines + loop_lines + ee_lines + [xarm_line]:
         log(line)
     line = json.dumps({"kernels": kernels})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:

@@ -23,10 +23,28 @@ CFG_DIR = os.environ.get("GSWORLD_TPU_CFG_DIR",
                          os.path.join(_REPO_DIR, "configs"))
 ROBOT_SPEC_DIR = os.path.join(_REPO_DIR, "gsworld_tpu", "assets", "robots")
 
+# the xArm's UFactory gripper counts as closed beyond this drive angle
+UFGRIPPER_CLOSED_THRESHOLD = 0.1
+
 # rotations by 180 degrees about x, y, z
 x_180_deg_rot = np.diag([1.0, -1.0, -1.0])
 y_180_deg_rot = np.diag([-1.0, 1.0, -1.0])
 z_180_deg_rot = np.diag([-1.0, -1.0, 1.0])
+
+
+def _euler2mat(x, y, z):
+    """Intrinsic XYZ euler angles -> Rz @ Ry @ Rx (float64)."""
+    cx, sx, cy, sy, cz, sz = (np.cos(x), np.sin(x), np.cos(y), np.sin(y),
+                              np.cos(z), np.sin(z))
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx
+
+
+# turns a z-axis cylinder scan onto the x axis
+cylinder_fix = np.eye(4)
+cylinder_fix[:3, :3] = _euler2mat(0, -np.pi / 2, 0)
 
 # sim -> GS scene alignment (scaled-ICP results)
 sim2gs_arm_trans = np.array(
@@ -344,6 +362,18 @@ right2base = np.array(
     [[-0.025185470710454363, 0.9003537485256276, -0.43442930331751733, 0.8003658631290567],
      [0.9990845637502204, 0.007637667199582072, -0.04209157297821219, 0.014761293894194942],
      [-0.034579279071787865, -0.4350917070636938, -0.8997218903101533, 0.8497237283025128],
+     [0.0, 0.0, 0.0, 1.0]], dtype=np.float32)
+
+xarm_right2base = np.array(
+    [[-0.99815940, 0.02312000, 0.05609515, 0.38209513],
+     [-0.00610404, 0.88159275, -0.47197380, 0.40018010],
+     [-0.06036488, -0.47144645, -0.87982790, 0.46095666],
+     [0.0, 0.0, 0.0, 1.0]], dtype=np.float32)
+
+xarm_wrist2base = np.array(
+    [[-0.0375638, -0.9982628, -0.04539683, 0.01998455],
+     [0.99928665, -0.03734544, -0.00564907, -0.00621691],
+     [0.00394388, -0.04557664, 0.99895304, -0.0705968],
      [0.0, 0.0, 0.0, 1.0]], dtype=np.float32)
 
 

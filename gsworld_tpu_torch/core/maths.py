@@ -142,6 +142,41 @@ def extract_rigid_transform_fast(M):
     return make_tf(R, t), scale, R, t
 
 
+def euler2mat(x, y, z):
+    """Intrinsic XYZ euler angles (scalar tensors) -> rotation matrix
+    Rz @ Ry @ Rx."""
+    x, y, z = (torch.as_tensor(v, dtype=torch.float32) for v in (x, y, z))
+    cx, sx = torch.cos(x), torch.sin(x)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cz, sz = torch.cos(z), torch.sin(z)
+    one, zero = torch.ones_like(cx), torch.zeros_like(cx)
+    Rx = torch.stack([one, zero, zero, zero, cx, -sx, zero, sx, cx]
+                     ).reshape(3, 3)
+    Ry = torch.stack([cy, zero, sy, zero, one, zero, -sy, zero, cy]
+                     ).reshape(3, 3)
+    Rz = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one]
+                     ).reshape(3, 3)
+    return Rz @ Ry @ Rx
+
+
+def matrix_to_euler_xyz(R):
+    """Rotation matrix (..., 3, 3) -> XYZ euler angles (a, b, c) with
+    R = Rx(a) @ Ry(b) @ Rz(c) (the pour check's tilt convention)."""
+    b = torch.arcsin(R[..., 0, 2].clamp(-1.0, 1.0))
+    a = torch.atan2(-R[..., 1, 2], R[..., 2, 2])
+    c = torch.atan2(-R[..., 0, 1], R[..., 0, 0])
+    return torch.stack([a, b, c], dim=-1)
+
+
+def quat_angle_between(q1, q2):
+    """Angle between two orientations in degrees, from |w| of their
+    relative rotation."""
+    q1 = quat_normalize(q1)
+    q2 = quat_normalize(q2)
+    w = torch.sum(q1 * q2, dim=-1).abs()
+    return torch.rad2deg(2.0 * torch.arccos(w.clamp(0.0, 1.0)))
+
+
 def inverse_sigmoid(x):
     """log(x / (1 - x)): the reference's scale/opacity logit transform."""
     return torch.log(x / (1.0 - x))

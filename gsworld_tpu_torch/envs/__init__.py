@@ -10,9 +10,20 @@ from gsworld_tpu_torch.envs.registry import (  # noqa: F401
 
 def _register_all():
     # import task modules for their registration side effects
-    from gsworld_tpu_torch.envs.tasks import real_fr3  # noqa: F401
+    from gsworld_tpu_torch.envs.tasks import (  # noqa: F401
+        real_fr3,
+        real_xarm,
+    )
     from gsworld_tpu_torch.envs.tasks.tabletop.franka import (  # noqa: F401
         align,
+        pnp_box,
+        pour_mustard,
+        stack,
+    )
+    from gsworld_tpu_torch.envs.tasks.tabletop.xarm6 import (  # noqa: F401
+        align as xarm_align,
+        rotate_banana,
+        spoon_on_board,
     )
 
 

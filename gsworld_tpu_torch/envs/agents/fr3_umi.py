@@ -3,8 +3,8 @@ gsworld_tpu/envs/agents/fr3_umi.py).
 
 Gains and limits: arm kp=1e3, kd=1e2, force 100; gripper identical.
 Controller set: pd_joint_pos, pd_joint_delta_pos, pd_ee_delta_pos,
-pd_ee_delta_pose (the two end-effector modes are configured here and
-raise when asked for targets until physics/ik.py is ported).  Grasp check:
+pd_ee_delta_pose (the two end-effector modes resolve TCP deltas by the
+damped-least-squares IK of physics/ik.py).  Grasp check:
 contact force >= 0.5 N and angle between the finger-opening direction and
 the contact force <= 85 deg.
 """

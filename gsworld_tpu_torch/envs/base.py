@@ -9,9 +9,13 @@ env axis B, and a thin stateful facade with the familiar gym API
 ``_initialize_episode``, ``evaluate``, ``_get_obs_extra``,
 ``compute_dense_reward``) take and return batched tensors.
 
-Random numbers: ``reset(seed)`` seeds a ``torch.Generator`` on the env's
-device and draws the uniform numbers ``_initialize_episode`` turns into an
-episode, so a sampler is a pure function of its draws.
+Random numbers: ``reset(seed)`` seeds a CPU ``torch.Generator`` and draws
+the uniform numbers ``_initialize_episode`` turns into an episode (then
+those ``_randomize_world`` turns into domain randomization).  A sampler
+is a pure function of its draws; the episode is laid out on the CPU and
+copied to the env's device once, so one seed gives one episode on the
+CPU and on the card.  The env's own action generator draws on the CPU as
+well.
 
 On a CUDA device the physics of a step (PD targets + control step) is
 captured once into a CUDA graph and replayed (``graph=True``, the
@@ -27,7 +31,11 @@ import numpy as np
 import torch
 
 from gsworld_tpu_torch import constants
-from gsworld_tpu_torch.core.maths import tf_from_pq, tf_inverse_rigid
+from gsworld_tpu_torch.core.maths import (
+    axis_angle_to_quat,
+    tf_from_pq,
+    tf_inverse_rigid,
+)
 from gsworld_tpu_torch.envs.agents.base import AgentSpec, get_agent
 import gsworld_tpu_torch.envs.agents.fr3_umi  # noqa: F401 (registers agents)
 from gsworld_tpu_torch.physics import builders as B
@@ -107,6 +115,9 @@ class EnvPoses:
     root_pos: Optional[torch.Tensor] = None    # (B, 3), default origin
     root_quat: Optional[torch.Tensor] = None   # (B, 4), default identity
     a_scale: Optional[torch.Tensor] = None     # (B, A), default 1
+    # domain randomization of the task state, default none:
+    obj_color: Optional[torch.Tensor] = None       # (B, A, 3) colour tint
+    cam_pose_noise: Optional[torch.Tensor] = None  # (B, C, 6) pos, rotvec
 
 
 class EpisodeInit(NamedTuple):
@@ -134,14 +145,20 @@ def env_state_from_numpy(fields: Mapping[str, Any],
     """EnvState from numpy arrays: ``fields["world"]`` as
     :func:`world_state_from_numpy` takes it, ``elapsed``, ``prev_target``
     and the ``task`` dict, each with the leading env axis (e.g. the fields
-    of a JAX EnvState; its random key has no counterpart and is ignored)."""
+    of a JAX EnvState; its random key has no counterpart and is ignored).
+    Task fields keep their kind: flags stay bool, numbers become f32."""
+    def task_field(v):
+        v = np.array(v)
+        return torch.as_tensor(v.astype(np.float32) if v.dtype.kind == "f"
+                               else v, device=device)
+
     return EnvState(
         world=world_state_from_numpy(fields["world"], device=device),
         elapsed=torch.as_tensor(np.array(fields["elapsed"], np.int32),
                                 device=device),
         prev_target=torch.as_tensor(
             np.array(fields["prev_target"], np.float32), device=device),
-        task={k: torch.as_tensor(np.array(v), device=device)
+        task={k: task_field(v)
               for k, v in (fields.get("task") or {}).items()})
 
 
@@ -200,6 +217,8 @@ class GsBaseEnv:
     actor_names: Tuple[str, ...] = ()
     # uniform numbers per env that _initialize_episode consumes
     episode_draws: int = 0
+    # uniform numbers per env that _randomize_world consumes
+    dr_draws: int = 0
 
     def __init__(self, num_envs: int = 1, robot_uids: str = "fr3_umi",
                  obs_mode: str = "state_dict",
@@ -301,8 +320,15 @@ class GsBaseEnv:
             mount_link=None,
             local_pose=look_at_sapien([1.0, 0.2, 0.5], [0.0, 0.0, 0.15]))]
 
-    def _randomize_world(self, world: WorldState, task):
-        """Per-episode domain randomization hook; returns (world, task)."""
+    def _root_pose(self) -> Tuple[float, float, float]:
+        """World position of the robot's root in every episode; the
+        orientation stays the identity."""
+        return (0.0, 0.0, 0.0)
+
+    def _randomize_world(self, world: WorldState, task, draws):
+        """Per-episode domain randomization hook: ``draws`` (B, dr_draws)
+        uniform numbers in [0, 1), drawn after the episode's; returns
+        (world, task)."""
         return world, task
 
     def update_task_state(self, data, task):
@@ -369,31 +395,43 @@ class GsBaseEnv:
                 "task": state.task}
 
     @torch.no_grad()
-    def _reset_fn(self, draws: torch.Tensor):
-        """``draws`` (B, episode_draws) -> (EnvState, obs)."""
+    def _reset_fn(self, draws: torch.Tensor,
+                  dr_draws: Optional[torch.Tensor] = None):
+        """``draws`` (B, episode_draws), ``dr_draws`` (B, dr_draws) ->
+        (EnvState, obs).  The episode is laid out where the draws are (the
+        CPU, for ``reset``) and copied to the env's device once, so it is
+        the same episode on every device."""
         scene = self.scene
-        dev = draws.device
+        host = draws.device
         ep = self._initialize_episode(draws)
         Bn, A = self.num_envs, scene.actors.num
         n_la = max(len(self._la_pairs), 1)
-        f32 = dict(dtype=torch.float32, device=dev)
+        f32 = dict(dtype=torch.float32, device=host)
+        root_pos = torch.tensor(self._root_pose(), **f32).expand(Bn, 3).clone()
         root_quat = torch.zeros((Bn, 4), **f32)
         root_quat[:, 0] = 1.0
         world = WorldState(
             qpos=ep.qpos, qvel=torch.zeros((Bn, self.agent.model.dof), **f32),
-            root_pos=torch.zeros((Bn, 3), **f32), root_quat=root_quat,
+            root_pos=root_pos, root_quat=root_quat,
             a_pos=ep.a_pos, a_quat=ep.a_quat,
             a_lin=torch.zeros((Bn, A, 3), **f32),
             a_ang=torch.zeros((Bn, A, 3), **f32),
             la_forces=torch.zeros((Bn, n_la, 3), **f32),
             contact_lam=torch.zeros((Bn, contact_row_count(scene), 6), **f32),
-            a_friction=scene.tensors.a_friction.expand(Bn, A).clone(),
+            a_friction=scene.tensors.a_friction.to(host).expand(Bn, A).clone(),
             a_scale=torch.ones((Bn, A), **f32))
-        world, task = self._randomize_world(world, ep.task)
+        if dr_draws is None:
+            dr_draws = torch.zeros((Bn, 0), **f32)
+        world, task = self._randomize_world(world, ep.task, dr_draws)
+        dev = self.device
+        world = WorldState(**{f: (None if getattr(world, f) is None
+                                  else getattr(world, f).to(dev))
+                              for f in WORLD_FIELDS})
         state = EnvState(world=world,
                          elapsed=torch.zeros(Bn, dtype=torch.int32,
                                              device=dev),
-                         prev_target=ep.qpos.clone(), task=task)
+                         prev_target=world.qpos.clone(),
+                         task={k: v.to(dev) for k, v in task.items()})
         return state, self._observations(state, self._env_data(state))[0]
 
     def _physics_eager(self, world: WorldState, prev_target, action):
@@ -477,12 +515,20 @@ class GsBaseEnv:
         cameras = self.cameras if cameras is None else cameras
         return self._camera_consts(cameras, device or self.device)[2]
 
-    def camera_extrinsics_cv(self, poses, cameras=None,
-                             link_pose=None) -> torch.Tensor:
+    def camera_extrinsics_cv(self, poses, cameras=None, link_pose=None,
+                             cam_pose_noise=None) -> torch.Tensor:
         """(B, n_cams, 4, 4) OpenCV world->cam extrinsics from FK.
         ``poses`` is an EnvPoses or a WorldState; ``link_pose`` =
-        (link_pos, link_quat) when FK already ran."""
+        (link_pos, link_quat) when FK already ran.  The sensor cameras'
+        poses are perturbed by ``cam_pose_noise`` (B, C, 6) (default: the
+        EnvPoses' own), pose @ T(noise[:, min(i, C - 1)]); other cameras
+        (the human view) never are."""
+        sensors = cameras is None or cameras is self.cameras
         cameras = self.cameras if cameras is None else cameras
+        if cam_pose_noise is None:
+            cam_pose_noise = getattr(poses, "cam_pose_noise", None)
+        if not sensors:
+            cam_pose_noise = None
         if link_pose is None:
             link_pose = forward_kinematics(self.agent.model, poses.qpos,
                                            poses.root_pos, poses.root_quat)
@@ -496,11 +542,18 @@ class GsBaseEnv:
             else:
                 li = self.agent.model.link_id(cam.mount_link)
                 pose = tf_from_pq(link_pos[:, li], link_quat[:, li]) @ local
+            if cam_pose_noise is not None:
+                n = cam_pose_noise[:, min(len(outs),
+                                          cam_pose_noise.shape[1] - 1)]
+                pose = pose @ tf_from_pq(n[:, :3],
+                                         axis_angle_to_quat(n[:, 3:6]))
             outs.append(s2cv @ tf_inverse_rigid(pose))
         return torch.stack(outs, dim=1)
 
     def sensor_params(self, state: EnvState, link_pose=None):
-        ext = self.camera_extrinsics_cv(state.world, link_pose=link_pose)
+        ext = self.camera_extrinsics_cv(
+            state.world, link_pose=link_pose,
+            cam_pose_noise=state.task.get("cam_pose_noise"))
         K = self.camera_intrinsics(device=ext.device)
         return {
             cam.name: {
@@ -519,28 +572,34 @@ class GsBaseEnv:
         return self.controller.action_dim
 
     def action_space_sample(self, generator: Optional[torch.Generator] = None):
-        """Uniform actions in [-1, 1), (B, action_dim), drawn from
-        ``generator`` (on the env's device) or from the env's own, which
-        ``reset(seed)`` seeds."""
+        """Uniform actions in [-1, 1), (B, action_dim), on the env's
+        device, drawn from ``generator`` (on its own device) or from the
+        env's own CPU generator, which ``reset(seed)`` seeds."""
         if generator is None:
             if self._action_gen is None:
-                self._action_gen = torch.Generator(device=self.device)
-                self._action_gen.manual_seed(0)
+                self._action_gen = torch.Generator().manual_seed(0)
             generator = self._action_gen
-        return torch.rand((self.num_envs, self.action_dim),
-                          generator=generator, device=self.device) * 2.0 - 1.0
+        a = torch.rand((self.num_envs, self.action_dim), generator=generator,
+                       device=generator.device) * 2.0 - 1.0
+        return a.to(self.device)
+
+    def reset_draws(self, seed: int):
+        """The uniform numbers of ``reset(seed)``, on the CPU: (episode
+        (B, episode_draws), randomization (B, dr_draws)), drawn in that
+        order from one CPU generator seeded with ``seed``."""
+        gen = torch.Generator().manual_seed(seed)
+        ep = torch.rand((self.num_envs, self.episode_draws), generator=gen)
+        dr = torch.rand((self.num_envs, self.dr_draws), generator=gen)
+        return ep, dr
 
     def episode_draws_for(self, seed: int) -> torch.Tensor:
         """The (B, episode_draws) uniform numbers of ``reset(seed)``."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return torch.rand((self.num_envs, self.episode_draws), generator=gen,
-                          device=self.device)
+        return self.reset_draws(seed)[0]
 
     def reset(self, seed: Optional[int] = None, options: Optional[dict] = None):
         seed = 0 if seed is None else seed
-        self._action_gen = torch.Generator(device=self.device)
-        self._action_gen.manual_seed(seed + 1)
-        self._state, obs = self._reset_fn(self.episode_draws_for(seed))
+        self._action_gen = torch.Generator().manual_seed(seed + 1)
+        self._state, obs = self._reset_fn(*self.reset_draws(seed))
         return obs, {}
 
     def _as_action(self, action) -> torch.Tensor:

@@ -5,9 +5,10 @@ gsworld_tpu/envs/controllers.py).
 A controller maps a (possibly normalized) action to per-dof PD position
 targets; the PD gains themselves live in the physics scene (world.py).
 
-The EE-space controllers (pd_ee_delta_pos/pose) resolve TCP deltas by
-damped-least-squares IK, which lives in ``physics/ik.py``; that module is
-not ported yet, so those modes raise ``NotImplementedError``.
+The EE-space controllers (``pd_ee_delta_pos``, ``pd_ee_delta_pose``)
+resolve normalized TCP deltas to arm joint targets by damped-least-squares
+IK over the Jacobian of the pose error (``physics/ik.py``), a fixed number
+of iterations with no host read, so the step stays capturable.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gsworld_tpu_torch.core.maths import axis_angle_to_quat, quat_to_matrix
+from gsworld_tpu_torch.physics import ik
 from gsworld_tpu_torch.physics.kinematics import (
     ArticulationModel,
     model_tensors,
@@ -102,17 +105,16 @@ class CompositeController:
         for g in self.groups:
             a = action[..., ofs:ofs + g.action_dim]
             ofs += g.action_dim
-            if isinstance(g, EEGroupConfig):
-                raise NotImplementedError(
-                    "end-effector control modes (pd_ee_delta_pos, "
-                    "pd_ee_delta_pose) need the IK of physics/ik.py, which "
-                    "is not ported yet")
             # the group's dof ids as a tensor, made once per device
             key = ("dof_ids", g.dof_ids)
             if key not in mt:
                 mt[key] = torch.as_tensor(g.dof_ids, dtype=torch.long,
                                           device=qpos.device)
             ids = mt[key]
+            if isinstance(g, EEGroupConfig):
+                q_sol = self._ee_solution(g, qpos, a, root_pos, root_quat)
+                target = target.index_copy(-1, ids, q_sol[..., ids])
+                continue
             if g.mimic:
                 a = a.expand(a.shape[:-1] + (len(g.dof_ids),))
             if g.use_delta:
@@ -133,3 +135,23 @@ class CompositeController:
             target = target.index_copy(
                 -1, ids, torch.clamp(new, lo_j[ids], hi_j[ids]))
         return target
+
+    def _ee_solution(self, g: EEGroupConfig, qpos, a, root_pos, root_quat):
+        """Joint solution (B, dof) of an end-effector delta action ``a``
+        (B, 3 or 6): clipped to [-1, 1] and scaled, the TCP target is
+        p + dp and, in pose mode, ``axis_angle_to_quat(drot) (x) q``;
+        then ``g.ik_iters`` IK steps from ``qpos``."""
+        chain = ik.ik_chain(self.model, g.ee_link, qpos.device)
+        T_root = ik.root_transform(root_pos, root_quat, qpos.shape[:-1],
+                                   qpos.device)
+        fk0 = ik.chain_fk(chain, qpos, T_root)
+        a = a.clamp(-1.0, 1.0)
+        dp = (g.pos_lower + (a[..., :3] + 1.0) * 0.5
+              * (g.pos_upper - g.pos_lower))
+        p_t, R_t = fk0[0][:, :3, 3] + dp, fk0[0][:, :3, :3]
+        if g.use_rotation:
+            drot = (g.rot_lower + (a[..., 3:6] + 1.0) * 0.5
+                    * (g.rot_upper - g.rot_lower))
+            R_t = quat_to_matrix(axis_angle_to_quat(drot)) @ R_t
+        return ik.dls_iterations(chain, qpos, p_t, R_t, T_root, g.dof_ids,
+                                 g.ik_iters, first_fk=fk0)

@@ -1,7 +1,8 @@
 """Scene acquisition (port of gsworld_tpu/gs/scene_factory.py, synthetic
 part).
 
-The port renders the synthetic stand-in scene, built in the GS frame of
+The port renders the synthetic stand-in scene of either robot family
+(the ``fr3_*`` and ``xarm6_*`` scene configs), built in the GS frame of
 the scene config from the calibration data and the robot's surface
 points: link Gaussians at ``sim2gs . T_link(scan_qpos)``, object Gaussians
 at ``sim2gs_obj . (local surface)``.  The numpy draws follow the JAX

@@ -68,10 +68,14 @@ class CompositeFunction(torch.autograd.Function):
 
 
 def project_frames(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0,
-                   shN):
-    """Project, then flatten the broadcast leading axes into one frame
-    axis -> (contiguous Projected (F, N, ...), leading shape)."""
+                   shN, color_tint=None):
+    """Project (and multiply the colours by ``color_tint``, broadcast to
+    (..., N, 3), where given), then flatten the broadcast leading axes
+    into one frame axis -> (contiguous Projected (F, N, ...), leading
+    shape)."""
     proj = project_gaussians(g, cam, cfg, sh0, shN)
+    if color_tint is not None:
+        proj = proj._replace(color=proj.color * color_tint)
     lead = proj.depth.shape[:-1]
     return Projected(*(x.reshape((-1,) + x.shape[len(lead):]).contiguous()
                        for x in proj)), lead
@@ -104,13 +108,18 @@ def render_projected(flat: Projected, cfg: RasterConfig, semantics=None):
 
 
 def render(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0, shN,
-           semantics=None):
+           semantics=None, color_tint=None):
     """Forward render -> dict with ``rgb`` (..., H, W, 3) in [0, 1],
     ``T`` (..., H, W) final transmittance, ``seg`` (..., H, W) int32 (when
     ``semantics`` (N,) is given, else None) and ``overflow`` (...).
-    ``rgb`` and ``T`` are differentiable when ``semantics`` is None."""
+    ``rgb`` and ``T`` are differentiable when ``semantics`` is None.
+
+    ``color_tint`` (per frame and Gaussian, broadcast to (..., N, 3), e.g.
+    (B, 1, N, 3) for B envs x C cameras) multiplies the projected colours
+    before binning: the per-object colour randomization.  The compositor
+    reads the tinted colours as it reads any."""
     with record_function("gsw.project"):
-        flat, lead = project_frames(g, cam, cfg, sh0, shN)
+        flat, lead = project_frames(g, cam, cfg, sh0, shN, color_tint)
     img, T_img, seg, bins = render_projected(flat, cfg, semantics)
     hw = (cfg.height, cfg.width)
     return dict(rgb=img.reshape(lead + hw + (3,)), T=T_img.reshape(lead + hw),

@@ -5,7 +5,11 @@ roll random actions for ``ep_len`` steps and measure the closed-loop rate
 
     python -m gsworld_tpu_torch.rollout.random_actions -n 4 --ep_len 30
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  The command line's
+defaults are the benchmark's configuration (``rgb+segmentation``, tile
+32, 64 tiles per Gaussian, 393216 entries per frame); ``build``'s own
+defaults are the smaller ones the tests use.  Another task:
+``-e AlignXArmEnv-v1 --cfg_name xarm6_align``.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
           control_freq: int, width: int, height: int,
           synthetic_scale: float = 1.0, obs_mode: str = "rgb",
           max_tiles_per_gaussian: int = 64, tile: int = 32,
-          max_entries: int = 1 << 19, device="cuda", graph: bool = True):
+          max_entries: int = 1 << 19, device="cuda", graph: bool = True,
+          **env_kwargs):
     """-> (env, wrapper).  ``graph`` captures the env's physics step into
-    a CUDA graph (ignored on the CPU)."""
+    a CUDA graph (ignored on the CPU); ``env_kwargs`` go to the env (e.g.
+    ``domain_randomization=True``, ``control_mode``)."""
     from gsworld_tpu_torch import envs
     from gsworld_tpu_torch.render.camera import RasterConfig
     from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
@@ -32,7 +38,7 @@ def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
     env = envs.make(env_id, num_envs=num_envs, obs_mode=obs_mode,
                     sim_config=dict(sim_freq=sim_freq,
                                     control_freq=control_freq),
-                    device=device, graph=graph)
+                    device=device, graph=graph, **env_kwargs)
     env.cameras = [dataclasses.replace(c, width=width, height=height)
                    for c in env.cameras]
     sizes = dict(
@@ -76,7 +82,7 @@ def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
         raise ValueError("use_scan asks for the captured physics step: "
                          "build the env with graph=True")
     obs, _ = wrapper.reset(seed=seed)
-    gen = torch.Generator(device=env.device).manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)    # same actions on any device
     for _ in range(warmup):
         obs, *_ = wrapper.step(env.action_space_sample(gen))
     _host_read(obs, env)
@@ -94,7 +100,7 @@ def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
     return ep_len * env.num_envs / dt, dt / ep_len, frames
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--env_id", "-e", default="AlignFr3Env-v1")
     p.add_argument("--cfg_name", default="fr3_align")
@@ -106,18 +112,28 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--synthetic_scale", type=float, default=1.0)
+    p.add_argument("--obs_mode", default="rgb+segmentation")
+    p.add_argument("--tile", type=int, default=32)
+    p.add_argument("--max_tiles_per_gaussian", type=int, default=64)
+    p.add_argument("--max_entries", type=int, default=393216)
     p.add_argument("--scan", action="store_true",
                    help="require the captured (CUDA graph) physics step")
     p.add_argument("--no_graph", action="store_true",
                    help="step the physics eagerly")
     p.add_argument("--device", default="cuda")
     p.add_argument("--save_video_dir", default=None)
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     env, wrapper = build(args.env_id, args.num_envs, args.cfg_name,
                          args.sim_freq, args.control_freq, args.width,
                          args.height, args.synthetic_scale,
-                         device=args.device, graph=not args.no_graph)
+                         obs_mode=args.obs_mode, tile=args.tile,
+                         max_tiles_per_gaussian=args.max_tiles_per_gaussian,
+                         max_entries=args.max_entries, device=args.device,
+                         graph=not args.no_graph)
     fps, spf, frames = rollout_fps(wrapper, args.ep_len, args.seed,
                                    use_scan=args.scan)
     print(f"FPS: {fps:.2f} (env-steps/s incl. GS render, "

@@ -17,7 +17,15 @@ Per-link transform (reference gs_world_wrapper.py:110-131):
 Per-object transform (gs_world_wrapper.py:135-162):
     full_o = sim2gs . (T_actor + offset) . sim2gs_obj^-1
     -> polar-decomposed rigid + uniform scale * object_scale
-Scan-pose link poses come from one FK at ``robot_scan_qpos``.
+Scan-pose link poses come from one FK at ``robot_scan_qpos``.  An xArm's
+link positions are shifted by ``object_offset["xarm_arm"]`` first (its
+scan was aligned with that offset); an FR3's are not.
+
+Domain randomization reaches the render through the task state: the
+per-object colour ``obj_color`` (B, A, 3) becomes a per-env, per-slot
+tint (1 where no object is) gathered per Gaussian and multiplied into the
+projected colours, and ``cam_pose_noise`` perturbs the sensor cameras'
+extrinsics (``GsBaseEnv.camera_extrinsics_cv``).
 
 Output contract (as the JAX wrapper): per camera, ``rgb`` uint8
 (B, H, W, 3) from ``clip(img * 255, 0, 255)`` truncated, and with
@@ -115,6 +123,9 @@ class GSWorldRenderer:
                                           dtype=torch.long, device=self.device)
         self.apply_scale = torch.as_tensor(self.layout.scaled,
                                            device=self.device)
+        self.link_offset = (torch.as_tensor(
+            constants.object_offset["xarm_arm"], **f32)
+            if "xarm" in env.robot_uids else None)
         cam0 = env.cameras[0] if env.cameras else None
         self.raster_config = raster_config or RasterConfig(
             width=cam0.width if cam0 else 640,
@@ -133,6 +144,8 @@ class GSWorldRenderer:
         t = torch.zeros((B, S, 3), **f32)
         s = torch.ones((B, S), **f32)
 
+        if self.link_offset is not None:
+            link_pos = link_pos + self.link_offset
         delta = (self.sim2gs @ tf_from_pq(link_pos, link_quat)
                  @ self.inv_link_pose0 @ self.inv_sim2gs)        # (B, L, 4, 4)
         R[:, self.link_slots] = delta[..., :3, :3]
@@ -146,6 +159,19 @@ class GSWorldRenderer:
             t[:, self.obj_slot] = t_obj
             s[:, self.obj_slot] = scale * self.obj_scale * a_scale[:, ai]
         return SlotTransforms(R=R, t=t, scale=s, apply_scale=self.apply_scale)
+
+    def color_tint(self, obj_color):
+        """Per-Gaussian tint (B, N, 3) of the per-actor colours
+        ``obj_color`` (B, A, 3): the objects' slots take their actor's
+        colour, every other slot 1; None without colours or objects."""
+        if obj_color is None or not self.gs_objects:
+            return None
+        B = obj_color.shape[0]
+        tint = torch.ones((B, self.layout.num_slots, 3), dtype=torch.float32,
+                          device=obj_color.device)
+        tint[:, self.obj_slot] = obj_color[:, self.obj_actor_idx].to(
+            torch.float32)
+        return tint[:, self.scene.slot_ids.long()]
 
     def _config_for(self, cameras):
         """The raster configuration of a render through ``cameras``: the
@@ -197,9 +223,11 @@ class GSWorldRenderer:
         cfg = self._config_for(cameras)
         posed_bc, gs_cams = self.frames(poses, cameras)
         want_seg = cameras is None and "segmentation" in env.obs_mode
+        tint = self.color_tint(poses.obj_color)
         out = gs_render(posed_bc, gs_cams, cfg, self.scene.sh0,
                         self.scene.shN,
-                        semantics=self.scene.semantics if want_seg else None)
+                        semantics=self.scene.semantics if want_seg else None,
+                        color_tint=None if tint is None else tint[:, None])
         self.last_overflow = out["overflow"]                     # (B, C)
         imgs = torch.clamp(out["rgb"] * 255.0, 0, 255).to(torch.uint8)
         result = {}
@@ -211,11 +239,14 @@ class GSWorldRenderer:
         return result
 
 
-def world_poses(world) -> EnvPoses:
-    """The pose state the render reads, of a WorldState."""
+def world_poses(world, task=None) -> EnvPoses:
+    """The pose state the render reads, of a WorldState and the task
+    state (its ``obj_color`` and ``cam_pose_noise``, where it has them)."""
+    task = task or {}
     return EnvPoses(qpos=world.qpos, a_pos=world.a_pos, a_quat=world.a_quat,
                     root_pos=world.root_pos, root_quat=world.root_quat,
-                    a_scale=world.a_scale)
+                    a_scale=world.a_scale, obj_color=task.get("obj_color"),
+                    cam_pose_noise=task.get("cam_pose_noise"))
 
 
 class GSWorldWrapper:
@@ -245,7 +276,8 @@ class GSWorldWrapper:
 
     def _render_fn(self, state, cameras=None) -> dict:
         with record_function("gsw.closed_loop.render"):
-            return self.renderer.render(world_poses(state.world), cameras)
+            return self.renderer.render(world_poses(state.world, state.task),
+                                        cameras)
 
     def _step_and_render(self, state, action):
         with record_function("gsw.closed_loop.physics"):

@@ -36,7 +36,10 @@ def test_exports_the_names_the_port_uses():
             "sim2gs_arm_trans", "sim2gs_object_transforms", "object_offset",
             "object_scale", "obj_gs_semantics", "robot_scan_qpos",
             "robot_task_init_qpos", "fr3_umi_task_init_qpos", "wrist2eef",
-            "right2base", "rs_d435i_rgb_k"} <= set(EXPORTED)
+            "right2base", "rs_d435i_rgb_k", "xarm_wrist2base",
+            "xarm_right2base", "UFGRIPPER_CLOSED_THRESHOLD",
+            "cylinder_fix", "sim2gs_xarm_trans", "xarm_gs_semantics",
+            "xarm_task_init_qpos"} <= set(EXPORTED)
 
 
 @pytest.mark.parametrize("name", EXPORTED)

@@ -1,7 +1,8 @@
 """The port's env layer (gsworld_tpu_torch/envs) against the JAX
 package's: controller targets, episode init as a pure function of its
-draws, and one AlignFr3Env-v1 step from a bridged state (observation tree,
-evaluate flags equal, reward to 1e-4)."""
+draws (drawn on the CPU), and one AlignFr3Env-v1 step from a bridged
+state (observation tree, evaluate flags equal, reward to 1e-4).  The
+end-effector modes are tests/test_torch_ik.py's."""
 
 import numpy as np
 import pytest
@@ -54,14 +55,30 @@ def test_compute_targets(pair, mode):
     assert torch.equal(torch.as_tensor(prev), torch.as_tensor(prev.copy()))
 
 
-@pytest.mark.parametrize("mode", ["pd_ee_delta_pos", "pd_ee_delta_pose"])
-def test_ee_modes_raise(mode):
-    env = tenvs.make("AlignFr3Env-v1", num_envs=1, control_mode=mode,
-                     device="cpu")
-    assert env.action_dim == (4 if mode == "pd_ee_delta_pos" else 7)
-    env.reset(seed=0)
-    with pytest.raises(NotImplementedError, match="physics/ik.py"):
-        env.step(np.zeros(env.action_dim, np.float32))
+def test_draws_come_from_a_cpu_generator():
+    """reset(seed)'s episode draws and the env's own actions come from
+    CPU generators, so a seed means one episode on every device."""
+    env = AlignFr3Env(num_envs=3, device="cpu")
+    want = torch.rand((3, env.episode_draws),
+                      generator=torch.Generator("cpu").manual_seed(11))
+    assert torch.equal(env.episode_draws_for(11), want)
+    ep, dr = env.reset_draws(11)
+    assert torch.equal(ep, want) and dr.shape == (3, 0)
+    env.reset(seed=11)
+    a = env.action_space_sample()
+    gen = torch.Generator("cpu").manual_seed(12)
+    assert torch.equal(a, torch.rand((3, 8), generator=gen) * 2.0 - 1.0)
+
+
+def test_cli_takes_the_bench_configuration():
+    from gsworld_tpu_torch.rollout.random_actions import parse_args
+    a = parse_args([])
+    assert (a.obs_mode, a.tile, a.max_tiles_per_gaussian, a.max_entries) \
+        == ("rgb+segmentation", 32, 64, 393216)
+    a = parse_args(["--obs_mode", "rgb", "--tile", "16",
+                    "--max_tiles_per_gaussian", "16", "--max_entries", "4096"])
+    assert (a.obs_mode, a.tile, a.max_tiles_per_gaussian, a.max_entries) \
+        == ("rgb", 16, 16, 4096)
 
 
 def _bad(obj0, obj1, goal):
@@ -269,8 +286,10 @@ def test_dense_reward_branches():
 
 
 def test_registry_and_facade():
-    assert "AlignFr3Env-v1" in tenvs.registered_envs()
-    assert "RealFr3-v1" in tenvs.registered_envs()
+    assert set(tenvs.registered_envs()) == set(jenvs.registered_envs()) == {
+        "AlignFr3Env-v1", "PnpBoxFr3Env-v1", "PourMustardFr3Env-v1",
+        "StackFr3Env-v1", "AlignXArmEnv-v1", "BananaRotationXArmEnv-v1",
+        "SpoonOnBoardXArmEnv-v1", "RealFr3-v1", "RealXArm6-v1"}
     with pytest.raises(KeyError, match="unknown env id"):
         tenvs.make("NoSuchEnv-v0")
     env = tenvs.make("AlignFr3Env-v1", num_envs=3, device="cpu",
