@@ -5,8 +5,9 @@ kernel against its plain PyTorch version at the shapes of its path, then
 drives the GS render half of the AlignFr3 step (GSWorldRenderer.render),
 3DGS training (real2sim.pipeline.train_from_colmap_model), the physics
 step of AlignFr3Env-v1 and the closed loop (rollout.random_actions) at
-full size, then the end-effector control modes, the other six tasks and
-the xArm closed loop with domain randomization, and reports their speed.
+full size, then the end-effector control modes, the other six tasks, the
+xArm closed loop with domain randomization, the closed loop on merged
+real-scan PLYs and the real2sim toolchain, and reports their speed.
 
     python3 chip_smoke.py
 
@@ -64,10 +65,33 @@ Phases (each prints a line; any failure exits non-zero before a result):
               one emit and one compositor launch per step; both kernels
               vs plain on its 8 tinted frames; the tint moves only pixels
               the objects reach
+  7a. scans   the fr3_align synthetic scene written as the PLYs (and the
+              labels .npy) that configs/fr3_align.json names, under a
+              temporary directory; merge_scene_from_config equals the
+              synthetic scene field by field; GSWorldWrapper(...,
+              asset_dir=...) merges them (is_real_scene) and its AlignFr3
+              loop, 4 envs x 2 cameras 640x480, gives the synthetic loop's
+              frames bit for bit over 30 steps; one emit and one
+              compositor launch per step; both kernels vs plain on its 8
+              frames; seconds to write and merge the PLYs
+  7b. real2sim the robot and background of fr3_align rendered from phase
+              5's arc; a COLMAP text model of them in SfM units (the world
+              x SFM_UNITS); ArucoScaleFactor on a virtual 10 cm marker's
+              corner tracks (scale within 1e-6); cameras_from_colmap of
+              the read-back model (world_view within 1e-5);
+              train_from_colmap_model at 640x480 for 300 iterations (one
+              composite_bwd launch each); the PLY read back bit for bit;
+              sample_robot_pcd, Umeyama on hand-picked link origins and
+              ICP on the clouds; segment_real_gs; the AlignFr3 loop on the
+              labelled scan and 7a's objects (4 envs x 2 cameras 640x480,
+              30 steps): finite frames, link ids, frames that follow the
+              arm; held-out PSNR, sim2gs error, label shares, seconds per
+              stage
 The lines before the JSON lines repeat the train, render-step, physics,
-closed-loop, EE-mode and xArm-loop lines; the second-to-last line is the
-kernels JSON, the last the device JSON.  Long outputs (profile, ptxas
-report) go to chiprun_out/.
+closed-loop, EE-mode, xArm-loop, scan-loop and real2sim lines; the
+second-to-last line is the kernels JSON, the last the device JSON.  Long
+outputs (profile, ptxas report) go to OUT_DIR, the git-ignored output
+directory of the checkout.
 """
 
 import dataclasses
@@ -121,6 +145,13 @@ OTHER_TASKS = ("PnpBoxFr3Env-v1", "PourMustardFr3Env-v1", "StackFr3Env-v1",
                "SpoonOnBoardXArmEnv-v1")
 TASK_STEPS = 3
 STATIC_LIN = 0.05       # actor_is_static's threshold = the depenetration cap
+SFM_UNITS = 2.7         # SfM units per GS unit of phase 7b's text model
+MARKER = 0.1            # side of 7b's virtual ArUco marker, GS units
+MARKER_SIM = (0.45, 0.15, 0.0)   # its centre on the table, sim frame
+PICK_NOISE = 0.005      # GS units: error of 7b's hand-picked link origins
+SCALE_TOL = 1e-6        # recovered scale, relative (tests/test_real2sim.py)
+VIEW_TOL = 1e-5         # rescaled cameras' world_view against the arc's
+SCAN_MOVE_STEPS = 5
 
 # Roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # lane instructions (67 TFLOP/s counts an FMA as two), MUFU operations
@@ -820,25 +851,20 @@ def phase_small_agreement():
         f"(>= 99.5%)")
 
 
-def look_at_arc(n, arc_deg, width, height, device, K=None):
-    """``n`` GS cameras on a horizontal arc of ``arc_deg`` degrees in front
-    of the fr3_align robot, 1.1 m from a point 0.35 m ahead of its base
-    and 0.3 m up, 0.4 m above that point and looking at it; D435i
-    intrinsics scaled to ``width`` x ``height``."""
+def look_at_w2c(n, arc_deg):
+    """World->camera matrices (f64, GS frame) of ``n`` cameras on a
+    horizontal arc of ``arc_deg`` degrees in front of the fr3_align robot,
+    1.1 m from a point 0.35 m ahead of its base and 0.3 m up, 0.4 m above
+    that point and looking at it."""
     import numpy as np
-    import torch
     from gsworld_tpu_torch import constants
-    from gsworld_tpu_torch.render.camera import camera_from_opencv
     _, sim2gs = constants.robot_calibration("fr3_align")
     sim2gs = np.asarray(sim2gs, np.float64)
     to_gs = lambda p: sim2gs[:3, :3] @ p + sim2gs[:3, 3]    # noqa: E731
     target = to_gs(np.array([0.35, 0.0, 0.3]))
     up = sim2gs[:3, :3] @ np.array([0.0, 0.0, 1.0])
     up /= np.linalg.norm(up)
-    K = np.array(constants.rs_d435i_rgb_k if K is None else K, np.float64)
-    K[0] *= width / 640.0
-    K[1] *= height / 480.0
-    cams = []
+    out = []
     for i in range(n):
         th = math.radians(arc_deg) * (i / max(n - 1, 1) - 0.5)
         eye = to_gs(np.array([0.35 + 1.1 * math.cos(th), 1.1 * math.sin(th),
@@ -850,10 +876,30 @@ def look_at_arc(n, arc_deg, width, height, device, K=None):
         w2c = np.eye(4)
         w2c[:3, :3] = np.stack([right, down, fwd])
         w2c[:3, 3] = -w2c[:3, :3] @ eye
-        cams.append(camera_from_opencv(
-            torch.as_tensor(w2c, dtype=torch.float32, device=device),
-            K.astype(np.float32), width, height))
-    return cams
+        out.append(w2c)
+    return out
+
+
+def arc_intrinsics(width, height, K=None):
+    """D435i intrinsics (or ``K``) scaled to ``width`` x ``height``."""
+    import numpy as np
+    from gsworld_tpu_torch import constants
+    K = np.array(constants.rs_d435i_rgb_k if K is None else K, np.float64)
+    K[0] *= width / 640.0
+    K[1] *= height / 480.0
+    return K
+
+
+def look_at_arc(n, arc_deg, width, height, device, K=None):
+    """GS cameras of :func:`look_at_w2c` with :func:`arc_intrinsics`."""
+    import numpy as np
+    import torch
+    from gsworld_tpu_torch.render.camera import camera_from_opencv
+    K = arc_intrinsics(width, height, K)
+    return [camera_from_opencv(
+        torch.as_tensor(w2c, dtype=torch.float32, device=device),
+        K.astype(np.float32), width, height)
+        for w2c in look_at_w2c(n, arc_deg)]
 
 
 class TrainSetup:
@@ -1047,7 +1093,7 @@ def phase_train(setup):
             f"launches {counts}")
     log(line)
     profile_train(setup, scene, cams, images)
-    return counts, line
+    return counts, line, hold_psnr
 
 
 def profile_train(setup, scene, cams, images):
@@ -1358,53 +1404,16 @@ def loop_steps(wrapper, n, seed=SEED):
 def phase_closed_loop():
     """6c: the closed loop through rollout.random_actions."""
     import torch
-    from gsworld_tpu_torch.render import rasterize_cuda as rc
-    from gsworld_tpu_torch.rollout.random_actions import build, rollout_fps
     lines, counts4 = [], None
     for B, steps in ((NUM_ENVS, LOOP_STEPS), (1, LOOP_STEPS),
                      (64, LOOP_STEPS_64)):
         t0 = time.perf_counter()
-        env, wrapper = build(
-            "AlignFr3Env-v1", B, "fr3_align", 120, 40,
-            BENCH_RASTER["width"], BENCH_RASTER["height"],
-            obs_mode="rgb+segmentation", tile=BENCH_RASTER["tile"],
-            max_tiles_per_gaussian=BENCH_RASTER["max_tiles_per_gaussian"],
-            max_entries=BENCH_RASTER["max_entries"])
-        def timed_start():
-            # after the reset and the warm-up steps (graph capture, first
-            # renders), just before the timed steps
-            torch.cuda.reset_peak_memory_stats()
-            rc.reset_launch_counts()
-
-        fps, spf, frames = rollout_fps(wrapper, steps, seed=SEED, warmup=2,
-                                       on_timed_start=timed_start)
-        counts = dict(rc.launch_counts)
-        peak = torch.cuda.max_memory_allocated()
-        for name in ("emit_entries", "composite_tiles"):
-            if counts[name] != steps:
-                raise AssertionError(
-                    f"closed loop B={B}: kernel {name} launched "
-                    f"{counts[name]} times in {steps} steps")
+        env, wrapper = bench_build("AlignFr3Env-v1", B, "fr3_align")
+        counts, text, _ = timed_loop(wrapper, f"closed loop B={B}", steps)
         cam = env.cameras[0]
-        if frames.shape != (B, cam.height, cam.width, 3) \
-                or frames.dtype.name != "uint8":
-            raise AssertionError(f"closed loop B={B}: frames "
-                                 f"{frames.shape} {frames.dtype}")
-        check_finite(env.state.world, f"closed loop B={B}")
-        overflow = int(wrapper.renderer.last_overflow.sum())
-        phys_ms, rend_ms, obs = loop_steps(wrapper, min(steps, 10))
-        check_outputs(obs["sensor_data"], B, cam.height, cam.width,
-                      ids_per_camera=False)
         line = (f"phase 6c closed loop, {B} envs x {len(env.cameras)} cams "
-                f"{cam.width}x{cam.height}, {steps} steps: {fps:.2f} "
-                f"env-steps/s, {1000.0 * spf:.3f} ms per step (host clock, "
-                f"ended by a synchronize and a host read); by CUDA events "
-                f"physics + observation {phys_ms:.3f} ms, render "
-                f"{rend_ms:.3f} ms (medians of {min(steps, 10)} further "
-                f"steps); overflow {overflow} entries in the last step, "
-                f"peak memory {peak / 2**30:.3f} GiB, launches {counts} "
-                f"in the {steps} timed steps (built, warmed and run in "
-                f"{time.perf_counter() - t0:.1f} s)")
+                f"{cam.width}x{cam.height}, {steps} steps: {text} (built, "
+                f"warmed and run in {time.perf_counter() - t0:.1f} s)")
         log(line)
         lines.append(line)
         if B == NUM_ENVS:
@@ -1602,49 +1611,17 @@ def phase_xarm_loop():
     """6d: AlignXArmEnv-v1 with domain randomization, rgb+segmentation,
     4 envs x 2 cameras 640x480, the xarm6_align synthetic scene at the
     bench sizes and raster, through rollout.random_actions."""
-    import torch
-    from gsworld_tpu_torch.render import rasterize_cuda as rc
-    from gsworld_tpu_torch.rollout.random_actions import build, rollout_fps
     t0 = time.perf_counter()
-    env, wrapper = build(
-        "AlignXArmEnv-v1", NUM_ENVS, "xarm6_align", 120, 40,
-        BENCH_RASTER["width"], BENCH_RASTER["height"],
-        obs_mode="rgb+segmentation", tile=BENCH_RASTER["tile"],
-        max_tiles_per_gaussian=BENCH_RASTER["max_tiles_per_gaussian"],
-        max_entries=BENCH_RASTER["max_entries"], domain_randomization=True)
-
-    def timed_start():
-        torch.cuda.reset_peak_memory_stats()
-        rc.reset_launch_counts()
-
-    fps, spf, frames = rollout_fps(wrapper, LOOP_STEPS, seed=SEED, warmup=2,
-                                   on_timed_start=timed_start)
-    counts = dict(rc.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    for name in ("emit_entries", "composite_tiles"):
-        if counts[name] != LOOP_STEPS:
-            raise AssertionError(f"xArm loop: kernel {name} launched "
-                                 f"{counts[name]} times in {LOOP_STEPS} "
-                                 f"steps")
-    cam = env.cameras[0]
-    if frames.shape != (NUM_ENVS, cam.height, cam.width, 3):
-        raise AssertionError(f"xArm loop: frames {frames.shape}")
+    env, wrapper = bench_build("AlignXArmEnv-v1", NUM_ENVS, "xarm6_align",
+                               domain_randomization=True)
+    counts, text, _ = timed_loop(wrapper, "xArm loop")
     if set(env.state.task) != {"obj_color", "cam_pose_noise"}:
         raise AssertionError(f"xArm loop: task state {set(env.state.task)}")
-    check_finite(env.state.world, "xArm loop")
-    overflow = int(wrapper.renderer.last_overflow.sum())
-    phys_ms, rend_ms, obs = loop_steps(wrapper, 10)
-    check_outputs(obs["sensor_data"], NUM_ENVS, cam.height, cam.width,
-                  ids_per_camera=False)
+    cam = env.cameras[0]
     line = (f"phase 6d xArm closed loop, AlignXArmEnv-v1 with domain "
             f"randomization, {NUM_ENVS} envs x {len(env.cameras)} cams "
             f"{cam.width}x{cam.height}, {wrapper.renderer.scene.num_gaussians}"
-            f" Gaussians, {LOOP_STEPS} steps: {fps:.2f} env-steps/s, "
-            f"{1000.0 * spf:.3f} ms per step (host clock); by CUDA events "
-            f"physics + observation {phys_ms:.3f} ms, render {rend_ms:.3f} ms"
-            f" (medians of 10 further steps); overflow {overflow} entries in "
-            f"the last step, peak memory {peak / 2**30:.3f} GiB, launches "
-            f"{counts} in the {LOOP_STEPS} timed steps (built, warmed and run "
+            f" Gaussians, {LOOP_STEPS} steps: {text} (built, warmed and run "
             f"in {time.perf_counter() - t0:.1f} s)")
     log(line)
     return counts, line, wrapper
@@ -1694,6 +1671,490 @@ def check_tint(wrapper):
         f"the background's); segmentation and the other envs bit for bit")
 
 
+# ---------------------------------------------------------------------- #
+# Phase 7: real-scan scenes and the real2sim toolchain
+# ---------------------------------------------------------------------- #
+
+
+def write_config_scans(splats, cfg_path, asset_dir):
+    """Write the splat dict ``splats`` as the scans that the scene config
+    ``cfg_path`` names, under ``asset_dir``: an entry with a scalar label
+    gets the Gaussians of that label (a PLY without semantics), an entry
+    with an ``.npy`` label file the others (labels in the PLY and the
+    ``.npy``).  -> the merged scene's Gaussians as indices into
+    ``splats``, in the order the config puts them."""
+    import numpy as np
+    from gsworld_tpu_torch.gs.merge import load_scene_config
+    from gsworld_tpu_torch.gs.ply import save_splats_to_ply
+    entries = load_scene_config(cfg_path)
+    sem = np.asarray(splats["semantics"])
+    scalar = [int(e["semantic_labels"]) for e in entries
+              if isinstance(e.get("semantic_labels"), (int, float))]
+    rest = np.flatnonzero(~np.isin(sem, scalar))
+    order = []
+    for e in entries:
+        lab = e.get("semantic_labels")
+        is_scalar = isinstance(lab, (int, float))
+        idx = np.flatnonzero(sem == int(lab)) if is_scalar else rest
+        part = {k: np.asarray(v)[idx] for k, v in splats.items()}
+        save_splats_to_ply(part, os.path.join(asset_dir, e["data_path"]),
+                           with_semantics=not is_scalar)
+        if isinstance(lab, str):
+            np.save(os.path.join(asset_dir, lab), part["semantics"])
+        order.append(idx)
+    return np.concatenate(order)
+
+
+def bench_build(env_id, num_envs, cfg_name, device="cuda", raster=None,
+                synthetic_scale=1.0, **kw):
+    """rollout.random_actions.build at the bench configuration
+    (rgb+segmentation, sim 120 / control 40 Hz, BENCH_RASTER unless
+    ``raster`` is given; ``kw``: ``asset_dir``, ``cfg_dir``, the env's
+    own) -> (env, wrapper)."""
+    from gsworld_tpu_torch.rollout.random_actions import build
+    r = raster or BENCH_RASTER
+    return build(env_id, num_envs, cfg_name, 120, 40, r["width"],
+                 r["height"], synthetic_scale=synthetic_scale,
+                 obs_mode="rgb+segmentation", tile=r["tile"],
+                 max_tiles_per_gaussian=r["max_tiles_per_gaussian"],
+                 max_entries=r["max_entries"], device=device, **kw)
+
+
+def frames_of(obs):
+    """(rgb, segmentation) of every camera of ``obs``, side by side."""
+    import torch
+    sd = obs["sensor_data"]
+    return (torch.cat([sd[c]["rgb"] for c in sorted(sd)], dim=2),
+            torch.cat([sd[c]["segmentation"] for c in sorted(sd)], dim=2))
+
+
+def timed_loop(wrapper, what, steps=None):
+    """rollout_fps over ``steps`` closed-loop steps (LOOP_STEPS unless
+    given), with the launch counts and peak memory of its timed window:
+    one emit and one compositor launch per step, frames of the cameras'
+    shape, a finite state; then up to 10 further steps split by CUDA
+    events, whose observation is checked -> (launch counts, text for the
+    phase's line, the last observation)."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.rollout.random_actions import rollout_fps
+    steps = steps or LOOP_STEPS
+    env = wrapper.env
+    B, cam = env.num_envs, env.cameras[0]
+
+    def timed_start():
+        # after the reset and the warm-up steps (graph capture, first
+        # renders), just before the timed steps
+        torch.cuda.reset_peak_memory_stats()
+        rc.reset_launch_counts()
+
+    fps, spf, frames = rollout_fps(wrapper, steps, seed=SEED, warmup=2,
+                                   on_timed_start=timed_start)
+    counts = dict(rc.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("emit_entries", "composite_tiles"):
+        if counts[name] != steps:
+            raise AssertionError(f"{what}: kernel {name} launched "
+                                 f"{counts[name]} times in {steps} steps")
+    if frames.shape != (B, cam.height, cam.width, 3) \
+            or frames.dtype.name != "uint8":
+        raise AssertionError(f"{what}: frames {frames.shape} "
+                             f"{frames.dtype}")
+    check_finite(env.state.world, what)
+    overflow = int(wrapper.renderer.last_overflow.sum())
+    n = min(steps, 10)
+    phys_ms, rend_ms, obs = loop_steps(wrapper, n)
+    check_outputs(obs["sensor_data"], B, cam.height, cam.width,
+                  ids_per_camera=False)
+    text = (f"{fps:.2f} env-steps/s, {1000.0 * spf:.3f} ms per step (host "
+            f"clock, ended by a synchronize and a host read); by CUDA "
+            f"events physics + observation {phys_ms:.3f} ms, render "
+            f"{rend_ms:.3f} ms (medians of {n} further steps); overflow "
+            f"{overflow} entries in the last step, peak memory "
+            f"{peak / 2**30:.3f} GiB, launches {counts} in the {steps} "
+            f"timed steps")
+    return counts, text, obs
+
+
+def phase_scan_loop(tmp, device="cuda"):
+    """7a: the fr3_align synthetic scene written as the scans
+    configs/fr3_align.json names (robot + background with a labels .npy,
+    one PLY per object), merged through get_scene, and the AlignFr3 closed
+    loop on it against the loop on the synthetic scene itself.
+    -> (launch counts, line, asset_dir)."""
+    import torch
+    from gsworld_tpu_torch import constants
+    from gsworld_tpu_torch.gs.merge import merge_scene_from_config
+    from gsworld_tpu_torch.gs.model import SCENE_FIELDS, scene_to_splats
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.wrapper.gs_env import world_poses
+    t0 = time.perf_counter()
+    syn_env, syn = bench_build("AlignFr3Env-v1", NUM_ENVS, "fr3_align",
+                               device)
+    if syn.is_real_scene:
+        raise AssertionError("7a: fr3_align's scans exist in the checkout; "
+                             "the synthetic stand-in was expected")
+    scene = syn.renderer.scene
+    asset_dir = os.path.join(tmp, "assets")
+    cfg_path = os.path.join(constants.CFG_DIR, "fr3_align.json")
+    t1 = time.perf_counter()
+    order = write_config_scans(scene_to_splats(scene), cfg_path, asset_dir)
+    write_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    merged, layout = merge_scene_from_config(
+        cfg_path, link_names=list(syn_env.agent.model.link_names),
+        object_labels={n: constants.obj_gs_semantics[n]
+                       for n in syn.renderer.gs_objects},
+        asset_dir=asset_dir, gs_semantics=constants.fr3_gs_semantics,
+        device=device)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t1
+    idx = torch.as_tensor(order, device=device)
+    differ = [f for f in SCENE_FIELDS
+              if not torch.equal(getattr(merged, f), getattr(scene, f)[idx])]
+    if differ or layout != syn.renderer.layout:
+        raise AssertionError(f"7a: the merged scene differs from the "
+                             f"synthetic one in {differ} (layout equal: "
+                             f"{layout == syn.renderer.layout})")
+    identity = bool((idx == torch.arange(len(idx), device=device)).all())
+    del merged
+
+    env, wrapper = bench_build("AlignFr3Env-v1", NUM_ENVS, "fr3_align",
+                               device, asset_dir=asset_dir)
+    if not wrapper.is_real_scene:
+        raise AssertionError("7a: the wrapper did not merge the scans")
+    # the two loops in lockstep: same seed, same actions, same frames
+    gen = torch.Generator().manual_seed(SEED)
+    obs_s, _ = syn.reset(seed=SEED)
+    obs_r, _ = wrapper.reset(seed=SEED)
+    rc.reset_launch_counts()
+    for i in range(LOOP_STEPS + 1):
+        if i:
+            a = env.action_space_sample(gen)
+            obs_s, *_ = syn.step(a)
+            obs_r, *_ = wrapper.step(a)
+        (rs, ss), (rr, sr) = frames_of(obs_s), frames_of(obs_r)
+        if not (torch.equal(rs, rr) and torch.equal(ss, sr)):
+            raise AssertionError(
+                f"7a: step {i}: the merged scan's frames differ from the "
+                f"synthetic scene's in {int((rs != rr).any(-1).sum())} rgb "
+                f"and {int((ss != sr).sum())} segmentation pixels")
+    lockstep = dict(rc.launch_counts)
+    del syn_env, syn, obs_s
+    torch.cuda.empty_cache()
+
+    counts, text, _ = timed_loop(wrapper, "7a scan loop")
+    cam = env.cameras[0]
+    st = env.state
+    phase_kernels(wrapper.renderer, world_poses(st.world, st.task),
+                  phase="7a", timed=False)
+    line = (f"phase 7a real-scan loop, AlignFr3Env-v1 on configs/"
+            f"fr3_align.json's scans ({scene.num_gaussians} Gaussians in 4 "
+            f"PLYs, {'the synthetic order' if identity else 'permuted'}; "
+            f"written in {write_s:.3f} s, merged in {merge_s:.3f} s), "
+            f"{NUM_ENVS} envs x {len(env.cameras)} cams "
+            f"{cam.width}x{cam.height}: merged scene == synthetic field by "
+            f"field, frames (rgb + segmentation) bit for bit the synthetic "
+            f"loop's over {LOOP_STEPS} steps from seed {SEED} (launches "
+            f"{lockstep} for both loops); {text} (built, checked and run in "
+            f"{time.perf_counter() - t0:.1f} s)")
+    log(line)
+    del env, wrapper, st
+    torch.cuda.empty_cache()
+    return counts, line, asset_dir
+
+
+def project_px(w2c, K, pts):
+    """Pixels (P, 2) of world points ``pts`` (P, 3) through a pinhole."""
+    cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+    px = cam @ K.T
+    return px[:, :2] / px[:, 2:3]
+
+
+def sim2gs_error(T, ref):
+    """(rotation degrees, translation mm, scale ratio) of the similarity
+    ``T`` against ``ref`` (mm: GS units x 1000)."""
+    import numpy as np
+    s, s_ref = (np.cbrt(np.linalg.det(M[:3, :3])) for M in (T, ref))
+    dR = (T[:3, :3] / s) @ (ref[:3, :3] / s_ref).T
+    ang = math.degrees(math.acos(min(1.0, max(-1.0,
+                                               (np.trace(dR) - 1) / 2))))
+    mm = 1000.0 * float(np.linalg.norm(T[:3, 3] - ref[:3, 3]))
+    return ang, mm, s / s_ref
+
+
+def write_sfm_model(setup, out_dir, n_obs=64):
+    """Phase 7b's COLMAP text model of the arc in SfM units (the GS frame
+    scaled by SFM_UNITS): one PINHOLE camera, one image per view with
+    ``n_obs`` observations, the noisy points and their uint8 colours.
+    -> the view names."""
+    import numpy as np
+    from gsworld_tpu_torch.physics.kinematics import _np_mat_to_quat
+    from gsworld_tpu_torch.real2sim import colmap_io
+    W, H = setup.cfg.width, setup.cfg.height
+    K = arc_intrinsics(W, H)
+    cams = {1: colmap_io.ColmapCamera(
+        1, "PINHOLE", W, H, np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))}
+    pts = np.asarray(setup.points, np.float64)
+    images = {}
+    for i, w2c in enumerate(look_at_w2c(TRAIN_VIEWS, TRAIN_ARC_DEG)):
+        images[i + 1] = colmap_io.ColmapImage(
+            i + 1, _np_mat_to_quat(w2c[:3, :3]), SFM_UNITS * w2c[:3, 3], 1,
+            f"view_{i:02d}.png", project_px(w2c, K, pts[:n_obs]),
+            np.arange(n_obs, dtype=np.int64))
+    rgb = np.round(np.asarray(setup.colors) * 255.0).astype(np.uint8)
+    colmap_io.write_model_txt(out_dir, cams, images,
+                              (np.arange(len(pts)), SFM_UNITS * pts, rgb))
+    return [im.name for im in images.values()]
+
+
+def marker_tracks(names, width, height):
+    """Pixel corners of a virtual MARKER-sized ArUco marker lying on the
+    table at MARKER_SIM, in every view of the arc."""
+    import numpy as np
+    from gsworld_tpu_torch import constants
+    _, sim2gs = constants.robot_calibration("fr3_align")
+    sim2gs = np.asarray(sim2gs, np.float64)
+    R = sim2gs[:3, :3]
+    u, v = (R[:, k] / np.linalg.norm(R[:, k]) for k in (0, 1))
+    c = R @ np.asarray(MARKER_SIM) + sim2gs[:3, 3]
+    h = MARKER / 2
+    corners = np.stack([c - h * u - h * v, c + h * u - h * v,
+                        c + h * u + h * v, c - h * u + h * v])
+    K = arc_intrinsics(width, height)
+    return {n: project_px(w2c, K, corners) for n, w2c in
+            zip(names, look_at_w2c(TRAIN_VIEWS, TRAIN_ARC_DEG))}
+
+
+def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
+    """7b: real2sim on the card.  The fr3_align robot and background (the
+    fr3_no_objs layout) rendered from phase 5's arc, a COLMAP text model
+    of it in SfM units, ArUco metric scaling from a virtual marker's
+    corner tracks, 3DGS training from the read-back model, the PLY,
+    the robot's point cloud, Umeyama + ICP, label transfer, a scene
+    config of the labelled scan and 7a's objects, and the AlignFr3 closed
+    loop on it.  -> (train launches, loop launches, line)."""
+    import json
+
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+    from gsworld_tpu_torch import constants
+    from gsworld_tpu_torch.envs.tasks.tabletop.franka.align import (
+        AlignFr3Env)
+    from gsworld_tpu_torch.gs.merge import load_scene_config
+    from gsworld_tpu_torch.gs.model import scene_to_splats
+    from gsworld_tpu_torch.gs.ply import load_ply_to_splats, save_splats_to_ply
+    from gsworld_tpu_torch.gs.scene_factory import get_scene
+    from gsworld_tpu_torch.physics.kinematics import forward_kinematics
+    from gsworld_tpu_torch.physics.spec_io import load_surface_points
+    from gsworld_tpu_torch.real2sim import alignment, colmap_io, label_transfer
+    from gsworld_tpu_torch.real2sim.aruco_scale import ArucoScaleFactor
+    from gsworld_tpu_torch.real2sim.pipeline import (cameras_from_colmap,
+                                                     train_from_colmap_model)
+    from gsworld_tpu_torch.real2sim.urdf_pcd import sample_robot_pcd
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.render.rasterize import render as gs_render
+    from gsworld_tpu_torch.train3dgs.loss import psnr
+    from gsworld_tpu_torch.train3dgs.train import render_trainable
+    from gsworld_tpu_torch.wrapper.gs_env import world_poses
+
+    stages = {}
+    clock = [time.perf_counter()]
+
+    def stage(name):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = round(now - clock[0], 3)
+        clock[0] = now
+
+    uid = "fr3_umi"
+    model = AlignFr3Env(num_envs=1).agent.model
+    scan_qpos = constants.robot_scan_qpos[uid]
+    gs_sem, sim2gs = constants.robot_calibration("fr3_no_objs")
+    sim2gs = np.asarray(sim2gs, np.float64)
+    truth, _, is_real = get_scene(
+        "fr3_no_objs", model, scan_qpos, (), list(model.link_names),
+        synthetic_sizes=BENCH_SIZES, surface_points=load_surface_points(uid),
+        device=device)
+    if is_real:
+        raise AssertionError("7b: fr3_no_objs's scans exist in the checkout")
+    setup = TrainSetup(truth, TRAIN_RASTER, device)
+    W, H = setup.cfg.width, setup.cfg.height
+    stage("truth and renders")
+
+    sparse = os.path.join(tmp, "sfm", "sparse", "0")
+    names = write_sfm_model(setup, sparse)
+    asf = ArucoScaleFactor(sparse, aruco_size=MARKER)
+    res = asf.run(marker_tracks(names, W, H))
+    scale_err = abs(res.scale * SFM_UNITS - 1.0)
+    if not scale_err <= SCALE_TOL:
+        raise AssertionError(f"7b: ArUco scale {res.scale!r} against "
+                             f"1/{SFM_UNITS}: relative error {scale_err:.3g}")
+    asf.apply(res, sparse)
+    stage("COLMAP model and ArUco scale")
+
+    cams_m = colmap_io.read_cameras_txt(os.path.join(sparse, "cameras.txt"))
+    imgs_m = colmap_io.read_images_txt(os.path.join(sparse, "images.txt"))
+    _, xyz, rgb = colmap_io.read_points3d_txt(
+        os.path.join(sparse, "points3D.txt"))
+    cams, got_names = cameras_from_colmap(cams_m, imgs_m, W, H, device=device)
+    view_err = max(float((a.world_view - b.world_view).abs().max())
+                   for a, b in zip(cams, setup.cams))
+    if got_names != names or not view_err <= VIEW_TOL:
+        raise AssertionError(f"7b: rescaled cameras: world_view max |diff| "
+                             f"{view_err:.3g}, names {got_names[:2]}...")
+    stage("read back")
+
+    keep = [i for i in range(len(cams)) if i != setup.hold]
+    rc.reset_launch_counts()
+    scan, losses = train_from_colmap_model(
+        xyz, rgb, [cams[i] for i in keep], [setup.images[i] for i in keep],
+        setup.cfg, params=train_params(), iterations=TRAIN_ITERS,
+        capacity=setup.capacity, seed=SEED, device=device)
+    train_counts = dict(rc.launch_counts)
+    if train_counts["composite_bwd"] != TRAIN_ITERS:
+        raise AssertionError(f"7b train: composite_bwd launched "
+                             f"{train_counts['composite_bwd']} times in "
+                             f"{TRAIN_ITERS} iterations")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("7b train: a loss is not finite")
+    with torch.no_grad():
+        out, _ = render_trainable(
+            scan, torch.zeros((scan.num_gaussians, 2), device=device),
+            cams[setup.hold], setup.cfg)
+        hold_psnr = float(psnr(out, setup.images[setup.hold]))
+    stage("train")
+
+    scan_dir = os.path.join(tmp, "scan")
+    ply = os.path.join(scan_dir, "point_cloud.ply")
+    splats = scene_to_splats(scan)
+    save_splats_to_ply(splats, ply)
+    back = load_ply_to_splats(ply)
+    if not all(np.array_equal(back[k].view(np.int32), splats[k].view(
+            np.int32).reshape(back[k].shape)) for k in splats):
+        raise AssertionError("7b: the scan's PLY does not read back bit for "
+                             "bit")
+    stage("PLY write and read")
+
+    pcd, pcd_lab = sample_robot_pcd(uid, 300_000)
+    stage("robot point cloud")
+    pos, _ = forward_kinematics(
+        model, torch.as_tensor(np.asarray(scan_qpos, np.float32)))
+    links = [n for n in model.link_names if n in gs_sem]
+    sim_pts = pos.numpy()[[model.link_names.index(n) for n in links]]
+    sim_pts = sim_pts.astype(np.float64)
+    rng = np.random.default_rng(SEED)
+    picked = (sim_pts @ sim2gs[:3, :3].T + sim2gs[:3, 3]
+              + rng.normal(scale=PICK_NOISE, size=sim_pts.shape))
+    means = back["means"].astype(np.float64)
+    T0 = alignment.umeyama(sim_pts, picked)
+    T = alignment.align_from_correspondences(sim_pts, picked,
+                                             sim_cloud=pcd, gs_cloud=means)
+    stage("Umeyama + ICP")
+    labels, _ = label_transfer.segment_real_gs(means, pcd, pcd_lab, T)
+    missing = sorted(set(np.unique(pcd_lab).tolist())
+                     - set(np.unique(labels).tolist()))
+    if missing:
+        raise AssertionError(f"7b: link labels {missing} of the robot cloud "
+                             f"are missing from the transferred labels")
+    lut = np.full(max(max(np.atleast_1d(v)) for v in gs_sem.values()) + 2, -1)
+    for k, name in enumerate(gs_sem):
+        for lab in np.atleast_1d(gs_sem[name]):
+            lut[int(lab) + 1] = k
+    truth_sem = truth.semantics.cpu().numpy()
+    _, nn = cKDTree(truth.means.cpu().numpy()).query(means)
+    linked = float((labels >= 0).mean())
+    agree = float((lut[labels + 1] == lut[truth_sem[nn] + 1]).mean())
+    not_in_cloud = sorted(
+        int(lab) for v in gs_sem.values() for lab in np.atleast_1d(v)
+        if int(lab) not in set(pcd_lab.tolist()))
+    stage("label transfer")
+
+    npy = os.path.join(scan_dir, "scan_semantics_gs.npy")
+    np.save(npy, labels)
+    objs = load_scene_config(os.path.join(constants.CFG_DIR,
+                                          "fr3_align.json"))[1:]
+    cfg_dir = os.path.join(tmp, "configs")
+    os.makedirs(cfg_dir, exist_ok=True)
+    with open(os.path.join(cfg_dir, "fr3_scan.json"), "w") as f:
+        json.dump({"models": [dict(data_path=ply, semantic_labels=npy,
+                                   transformation=[])] + [
+            dict(data_path=os.path.join(asset_dir, e["data_path"]),
+                 semantic_labels=e["semantic_labels"], transformation=[])
+            for e in objs]}, f, indent=2)
+    env, wrapper = bench_build("AlignFr3Env-v1", NUM_ENVS, "fr3_scan",
+                               device, cfg_dir=cfg_dir)
+    if not wrapper.is_real_scene:
+        raise AssertionError("7b: the wrapper did not merge the scan")
+    loop_counts, text, obs = timed_loop(wrapper, "7b scan loop")
+    r = wrapper.renderer
+    st = env.state
+    with torch.no_grad():
+        posed, vcams = r.frames(world_poses(st.world, st.task))
+        img = gs_render(posed, vcams, r.raster_config, r.scene.sh0,
+                        r.scene.shN, semantics=r.scene.semantics)["rgb"]
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("7b loop: a frame is not finite")
+    rgb0, seg0 = frames_of(obs)
+    q0 = st.world.qpos.clone()
+    link_ids = torch.as_tensor(np.unique(pcd_lab), device=seg0.device)
+    seg_links = int(torch.isin(seg0.long(), link_ids).sum())
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for _ in range(SCAN_MOVE_STEPS):
+        obs, *_ = wrapper.step(env.action_space_sample(gen))
+    rgb1, _ = frames_of(obs)
+    moved = float((env.state.world.qpos - q0).abs().max())
+    changed = int((rgb0 != rgb1).any(-1).sum())
+    if seg_links == 0 or not (moved > 1e-3 and changed > 0):
+        raise AssertionError(f"7b loop: {seg_links} pixels carry a link id; "
+                             f"the arm moved {moved:.3g} rad and {changed} "
+                             f"pixels changed")
+    stage("closed loop")
+    ang0, mm0, s0 = sim2gs_error(T0, sim2gs)
+    ang, mm, s = sim2gs_error(T, sim2gs)
+    line = (f"phase 7b real2sim: ArUco scale {res.scale:.12g} from "
+            f"{res.n_detections} views (1/{SFM_UNITS}: relative error "
+            f"{scale_err:.3g}, tolerance {SCALE_TOL}); rescaled cameras' "
+            f"world_view within {view_err:.3g} of the arc's; trained "
+            f"{truth.num_gaussians} points -> {scan.num_gaussians} Gaussians "
+            f"in {TRAIN_ITERS} iterations at {W}x{H} (loss {losses[0]:.5f} "
+            f"-> {losses[-1]:.5f}, launches {train_counts}), held-out PSNR "
+            f"{hold_psnr:.2f} dB (phase 5: "
+            f"{'not run' if psnr5 is None else f'{psnr5:.2f} dB'}); PLY bit "
+            f"for bit; sim2gs against the calibration: Umeyama on "
+            f"{len(links)} picked link origins ({PICK_NOISE} noise) "
+            f"{ang0:.4f} deg, {mm0:.3f} mm, scale x{s0:.6f}; after ICP on "
+            f"{len(pcd)} robot points {ang:.4f} deg, {mm:.3f} mm, scale "
+            f"x{s:.6f}; {linked:.2%} of the scan's Gaussians carry a link "
+            f"label, {agree:.2%} agree with the nearest truth Gaussian's "
+            f"link (labels {not_in_cloud} are not in the robot cloud); "
+            f"closed loop on the labelled scan + 3 object PLYs, {NUM_ENVS} "
+            f"envs x {len(env.cameras)} cams {W}x{H}: {text}; {seg_links} "
+            f"pixels carry a link id, {changed} pixels changed after "
+            f"{SCAN_MOVE_STEPS} more steps (arm moved {moved:.3g} rad); "
+            f"seconds per stage {stages}")
+    log(line)
+    del env, wrapper, obs, st, posed
+    torch.cuda.empty_cache()
+    return train_counts, loop_counts, line
+
+
+def phase_scans(psnr5=None):
+    """Phases 7a and 7b, their scans under a temporary directory that is
+    removed after them -> launch counts and lines."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory(prefix="gsw_scans_") as tmp:
+        scan_counts, scan_line, asset_dir = phase_scan_loop(tmp)
+        train_counts, loop_counts, r2s_line = phase_real2sim(tmp, asset_dir,
+                                                             psnr5)
+    torch.cuda.empty_cache()
+    return dict(scan_loop=scan_counts, train=train_counts,
+                real2sim_loop=loop_counts, lines=[scan_line, r2s_line])
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -1703,6 +2164,9 @@ def main(argv=None):
     ap.add_argument("--physics-only", action="store_true",
                     help="run phases 1, 6a, 6b and 6d's EE-mode and task "
                          "rows only (no kernel is built) and print no "
+                         "result line")
+    ap.add_argument("--scans-only", action="store_true",
+                    help="run phases 1, 2, 7a and 7b only and print no "
                          "result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1715,6 +2179,9 @@ def main(argv=None):
         phase_tasks()
         return           # a partial run prints no result line
     phase_build()
+    if args.scans_only:
+        phase_scans()
+        return           # a partial run prints no result line
     t0 = time.perf_counter()
     renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
     states = random_states(renderer.env, STEPS, "cuda")
@@ -1736,7 +2203,7 @@ def main(argv=None):
     counts, slice_line = phase_slice(renderer, states)
     phase_profile(4, "render", lambda i: renderer.render(states[i]))
     phase_small_agreement()
-    train_counts, train_line = phase_train(setup)
+    train_counts, train_line, psnr5 = phase_train(setup)
     phase_small_train()
     del renderer, states, setup
     torch.cuda.empty_cache()
@@ -1755,18 +2222,23 @@ def main(argv=None):
     check_tint(wrapper)
     del wrapper, st, poses
     torch.cuda.empty_cache()
+    scans = phase_scans(psnr5)
     # launches: the render path's for its kernels, the training path's for
     # the backward (every path's counts are in the lines below); the
     # closed loop's launches of the forward kernels ride along
     for k in kernels:
         k["launches"] = (train_counts if k["name"] == "composite_bwd"
                          else counts)[k["name"]]
-        if k["name"] in loop_counts and k["name"] != "composite_bwd":
+        k["real2sim_train_launches"] = scans["train"][k["name"]]
+        if k["name"] != "composite_bwd":
             k["closed_loop_launches"] = loop_counts[k["name"]]
             k["xarm_loop_launches"] = xarm_counts[k["name"]]
+            k["scan_loop_launches"] = scans["scan_loop"][k["name"]]
+            k["real2sim_loop_launches"] = scans["real2sim_loop"][k["name"]]
     log(train_line)          # repeated here so the end of the log holds them
     log(slice_line)
-    for line in physics_lines + loop_lines + ee_lines + [xarm_line]:
+    for line in (physics_lines + loop_lines + ee_lines + [xarm_line]
+                 + scans["lines"]):
         log(line)
     line = json.dumps({"kernels": kernels})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:

@@ -11,20 +11,23 @@ the card (``device="cuda"``) unless the caller asks for the CPU.
 
 Subpackage map (module names follow the JAX package):
   core/      quaternion and SE(3) math
-  physics/   robot spec loading and forward kinematics
-  envs/      static task descriptions (agents, cameras, actor names)
-  gs/        Gaussian scene tensors, synthetic scenes, slot reposing
+  physics/   robot specs (JSON+NPZ, or URDF), kinematics, IK, dynamics,
+             contacts and the world step
+  envs/      agents, controllers and the task envs
+  gs/        Gaussian scene tensors, PLY I/O, real-scan merging, synthetic
+             scenes, slot reposing
   render/    camera bridge, projection, binning, compositing; the CUDA
              kernels live in ``csrc/`` and are bound in
              ``render/rasterize_cuda.py``
-  wrapper/   GSWorldRenderer: FK -> slots -> repose -> render, batched over
-             envs x cameras
+  wrapper/   GSWorldRenderer and GSWorldWrapper: FK -> slots -> repose ->
+             render, batched over envs x cameras, in the env step
+  rollout/   the random-action closed loop
   train3dgs/ 3DGS training: loss, per-group Adam, densify/prune, trainer
-  real2sim/  train_from_colmap_model: point cloud + posed images -> scene
+  real2sim/  COLMAP text I/O and SfM, ArUco scale, 3DGS reconstruction,
+             the robot's point cloud, Umeyama + ICP, label transfer
 
-Ported so far: the GS render half of the AlignFr3 step and 3DGS training
-(the differentiable render).  Physics, the closed loop, planning and the
-COLMAP / real-scan I/O are still to port (ROADMAP.md).
+Still to port: planning and data collection, checkpoints and profiling
+utilities, multi-card splitting (ROADMAP.md queue A).
 """
 
 __version__ = "0.1.0"

@@ -155,3 +155,11 @@ def scene_to_splats(scene: GaussianScene) -> Dict[str, np.ndarray]:
         "opacities": a["logit_opacities"].reshape(n, 1),
         "semantics": a["semantics"],
     }
+
+
+def concatenate_scenes(scenes: Sequence[GaussianScene]) -> GaussianScene:
+    """Merge scenes by concatenating every field (order kept), as
+    GaussianModelMerger.merge_models (gaussian_merger.py:213-274); the
+    scenes share one device."""
+    return GaussianScene(**{f: torch.cat([getattr(s, f) for s in scenes])
+                            for f in SCENE_FIELDS})

@@ -1,20 +1,18 @@
-"""Scene acquisition (port of gsworld_tpu/gs/scene_factory.py, synthetic
-part).
+"""Scene acquisition (port of gsworld_tpu/gs/scene_factory.py): the real
+GS scans a scene config names, merged by gs/merge.py, or a synthetic
+stand-in where the scans are absent.
 
-The port renders the synthetic stand-in scene of either robot family
-(the ``fr3_*`` and ``xarm6_*`` scene configs), built in the GS frame of
-the scene config from the calibration data and the robot's surface
-points: link Gaussians at ``sim2gs . T_link(scan_qpos)``, object Gaussians
-at ``sim2gs_obj . (local surface)``.  The numpy draws follow the JAX
-package's order, so one seed gives one scene in both packages.
-
-Merging real PLY scans (gs/merge.py, gs/ply.py) is not ported yet:
-:func:`get_scene` raises when the scene config points at scans that exist.
+The stand-in of either robot family (the ``fr3_*`` and ``xarm6_*`` scene
+configs) is built in the GS frame of the scene config from the
+calibration data and the robot's surface points: link Gaussians at
+``sim2gs . T_link(scan_qpos)``, object Gaussians at
+``sim2gs_obj . (local surface)``, so the repose moves them as it moves
+real scans.  The numpy draws follow the JAX package's order, so one seed
+gives one scene in both packages.
 """
 
 from __future__ import annotations
 
-import json
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -23,6 +21,7 @@ import torch
 
 from gsworld_tpu_torch import constants
 from gsworld_tpu_torch.core.maths import quat_to_matrix
+from gsworld_tpu_torch.gs import merge as gsmerge
 from gsworld_tpu_torch.gs import synthetic
 from gsworld_tpu_torch.gs.model import (
     GaussianScene,
@@ -106,23 +105,6 @@ def synthesize_scene(
     return synthetic.concat_splats(parts)
 
 
-def _real_scans_present(cfg_path: str, asset_dir: str) -> bool:
-    """True when every PLY / semantics file the scene config names exists
-    (the JAX package would then merge real scans instead of synthesizing)."""
-    with open(cfg_path) as f:
-        entries = json.load(f).get("models", [])
-
-    def exists(p):
-        return os.path.exists(p if os.path.isabs(p)
-                              else os.path.join(asset_dir, p))
-
-    return bool(entries) and all(
-        exists(e["data_path"])
-        and (not isinstance(e.get("semantic_labels"), str)
-             or exists(e["semantic_labels"]))
-        for e in entries)
-
-
 def get_scene(cfg_name: str, model, scan_qpos, object_names,
               link_names: Sequence[str],
               asset_dir: Optional[str] = None,
@@ -130,24 +112,29 @@ def get_scene(cfg_name: str, model, scan_qpos, object_names,
               synthetic_seed: int = 0,
               synthetic_sizes: Optional[dict] = None,
               surface_points: Optional[Dict[str, np.ndarray]] = None,
-              device="cuda") -> Tuple[GaussianScene, SlotLayout]:
-    """(scene, layout) of the synthetic stand-in for ``cfg_name``.
-
-    Raises NotImplementedError when ``configs/<cfg_name>.json`` resolves
-    to real scans that exist: the port cannot merge them yet, and
-    rendering a synthetic scene in their place would be silently wrong."""
-    cfg_path = os.path.join(cfg_dir or constants.CFG_DIR, f"{cfg_name}.json")
+              device="cuda") -> Tuple[GaussianScene, SlotLayout, bool]:
+    """(scene, layout, is_real): the merged real scans of
+    ``<cfg_dir>/<cfg_name>.json`` when it exists and names files that
+    exist, else the synthetic stand-in.  As in the JAX package, only a
+    missing file (``FileNotFoundError``) falls back; any other fault of
+    the config or its scans raises."""
+    cfg_dir = cfg_dir or constants.CFG_DIR
     asset_dir = asset_dir or constants.ASSET_DIR
-    if os.path.exists(cfg_path) and _real_scans_present(cfg_path, asset_dir):
-        raise NotImplementedError(
-            f"{cfg_path} names real GS scans under {asset_dir}; merging real "
-            "scans is not ported to gsworld_tpu_torch yet")
+    cfg_path = os.path.join(cfg_dir, f"{cfg_name}.json")
     gs_sem, _ = constants.robot_calibration(cfg_name)
+    object_labels = {n: constants.obj_gs_semantics[n] for n in object_names}
+    if os.path.exists(cfg_path):
+        try:
+            scene, layout = gsmerge.merge_scene_from_config(
+                cfg_path, link_names=link_names, object_labels=object_labels,
+                asset_dir=asset_dir, gs_semantics=gs_sem, device=device)
+            return scene, layout, True
+        except FileNotFoundError:
+            pass
     splats = synthesize_scene(cfg_name, model, scan_qpos, object_names,
                               seed=synthetic_seed,
                               surface_points=surface_points,
                               **(synthetic_sizes or {}))
-    slot_ids, layout = build_slot_ids(
-        splats["semantics"], gs_sem, link_names,
-        {n: constants.obj_gs_semantics[n] for n in object_names})
-    return scene_from_splats(splats, slot_ids, device=device), layout
+    slot_ids, layout = build_slot_ids(splats["semantics"], gs_sem,
+                                      link_names, object_labels)
+    return scene_from_splats(splats, slot_ids, device=device), layout, False

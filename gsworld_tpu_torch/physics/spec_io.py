@@ -35,11 +35,13 @@ class MimicSpec:
 
 @dataclasses.dataclass
 class GeomSpec:
-    kind: str                      # "box" | "cylinder" | "sphere" | "capsule" | "points"
+    kind: str     # "box" | "cylinder" | "sphere" | "capsule" | "points" | "mesh"
     origin_pos: np.ndarray         # (3,) in link frame
     origin_rot: np.ndarray         # (3, 3)
     size: Optional[np.ndarray] = None    # box: full extents; cyl: [r, l]; sphere: [r]
     points: Optional[np.ndarray] = None  # "points": (K, 3) convex support pts
+    mesh_path: Optional[str] = None      # "mesh" (URDF only): file, scale
+    mesh_scale: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -53,6 +55,7 @@ class LinkSpec:
     inertia: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((3, 3)))
     collisions: List[GeomSpec] = dataclasses.field(default_factory=list)
+    visuals: List[GeomSpec] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass

@@ -27,9 +27,11 @@ def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
           synthetic_scale: float = 1.0, obs_mode: str = "rgb",
           max_tiles_per_gaussian: int = 64, tile: int = 32,
           max_entries: int = 1 << 19, device="cuda", graph: bool = True,
-          **env_kwargs):
+          asset_dir=None, cfg_dir=None, **env_kwargs):
     """-> (env, wrapper).  ``graph`` captures the env's physics step into
-    a CUDA graph (ignored on the CPU); ``env_kwargs`` go to the env (e.g.
+    a CUDA graph (ignored on the CPU); ``asset_dir`` and ``cfg_dir`` say
+    where the scene config and its scans are (the wrapper merges the
+    scans when they exist); ``env_kwargs`` go to the env (e.g.
     ``domain_randomization=True``, ``control_mode``)."""
     from gsworld_tpu_torch import envs
     from gsworld_tpu_torch.render.camera import RasterConfig
@@ -51,7 +53,8 @@ def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
             width=width, height=height, tile=tile,
             max_tiles_per_gaussian=max_tiles_per_gaussian,
             max_entries=max_entries),
-        synthetic_sizes=sizes, device=device)
+        asset_dir=asset_dir, cfg_dir=cfg_dir, synthetic_sizes=sizes,
+        device=device)
     return env, wrapper
 
 

@@ -37,7 +37,7 @@ class DensifyState(NamedTuple):
 
 
 def init_densify_state(n_capacity: int, n_alive: int,
-                       device="cpu") -> DensifyState:
+                       device="cuda") -> DensifyState:
     alive = torch.arange(n_capacity, device=device) < n_alive
     z = torch.zeros(n_capacity, dtype=torch.float32, device=device)
     return DensifyState(alive=alive, grad_accum=z, denom=z.clone(),

@@ -89,7 +89,7 @@ class GSWorldRenderer:
             surface = load_surface_points(env.robot_uids)
         except FileNotFoundError:
             surface = None
-        self.scene, self.layout = get_scene(
+        self.scene, self.layout, self.is_real_scene = get_scene(
             scene_gs_cfg_name, model, scan_qpos, self.gs_objects,
             link_names=list(model.link_names), asset_dir=asset_dir,
             cfg_dir=cfg_dir, synthetic_sizes=synthetic_sizes,
@@ -272,6 +272,7 @@ class GSWorldWrapper:
             env, scene_gs_cfg_name, raster_config=raster_config,
             synthetic_sizes=synthetic_sizes, asset_dir=asset_dir,
             cfg_dir=cfg_dir, device=device)
+        self.is_real_scene = self.renderer.is_real_scene
         self.raster_config = self.renderer.raster_config
 
     def _render_fn(self, state, cameras=None) -> dict:

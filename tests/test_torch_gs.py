@@ -83,11 +83,17 @@ class TestScene:
             np.testing.assert_array_equal(getattr(scene, f).numpy(),
                                           np.asarray(getattr(jw.scene, f)))
 
-    def test_get_scene_refuses_real_scans(self, tmp_path):
+    def test_get_scene_merges_real_scans_or_falls_back(self, tmp_path):
+        """A config whose scans exist is merged (is_real); only a missing
+        file falls back to the synthetic scene; a broken scan raises."""
+        from gsworld_tpu_torch.gs import synthetic
+        from gsworld_tpu_torch.gs.ply import save_splats_to_ply
         cfg_dir, asset_dir = tmp_path / "configs", tmp_path / "assets"
         cfg_dir.mkdir()
-        (asset_dir / "scene").mkdir(parents=True)
-        (asset_dir / "scene" / "robot.ply").write_bytes(b"ply\n")
+        ply = asset_dir / "scene" / "robot.ply"
+        splats = synthetic.make_blob(np.random.default_rng(0), 50,
+                                     [0, 0, 0], 0.1, [0.5, 0.5, 0.5], 3)
+        save_splats_to_ply(splats, str(ply))
         (cfg_dir / "fr3_test.json").write_text(json.dumps({"models": [
             {"data_path": "./scene/robot.ply", "semantic_labels": 201}]}))
         model = AlignFr3Env().agent.model
@@ -96,11 +102,16 @@ class TestScene:
                   cfg_dir=str(cfg_dir), asset_dir=str(asset_dir),
                   synthetic_sizes=dict(n_background=10, n_per_link=2,
                                        n_per_object=2), device="cpu")
-        with pytest.raises(NotImplementedError, match="real GS scans"):
+        scene, _, is_real = get_scene("fr3_test", **kw)
+        assert is_real and scene.num_gaussians == 50
+        np.testing.assert_array_equal(scene.means.numpy(), splats["means"])
+        assert (scene.semantics.numpy() == 201).all()
+        ply.write_bytes(b"ply\n")                 # broken: raises
+        with pytest.raises(ValueError, match="PLY header"):
             get_scene("fr3_test", **kw)
-        (asset_dir / "scene" / "robot.ply").unlink()
-        scene, _ = get_scene("fr3_test", **kw)     # scans absent: synthetic
-        assert scene.num_gaussians > 0
+        ply.unlink()                               # missing: synthetic
+        scene, _, is_real = get_scene("fr3_test", **kw)
+        assert not is_real and scene.num_gaussians > 0
 
 
 class TestRepose:

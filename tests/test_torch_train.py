@@ -280,7 +280,8 @@ def test_train_step_matches_jax():
 
     sc = densify.pad_scene_capacity(scene_from_numpy(start, device="cpu"),
                                     128)
-    state = TrainState(scene=sc, ds=densify.init_densify_state(128, 120),
+    state = TrainState(scene=sc,
+                       ds=densify.init_densify_state(128, 120, "cpu"),
                        opt_state=adam_init(sc), step=0)
     state, loss, img = make_train_step(cfg, params)(
         state, cam, torch.as_tensor(target))
