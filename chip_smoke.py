@@ -7,7 +7,8 @@ drives the GS render half of the AlignFr3 step (GSWorldRenderer.render),
 step of AlignFr3Env-v1 and the closed loop (rollout.random_actions) at
 full size, then the end-effector control modes, the other six tasks, the
 xArm closed loop with domain randomization, the closed loop on merged
-real-scan PLYs and the real2sim toolchain, and reports their speed.
+real-scan PLYs, the real2sim toolchain and scripted demo collection
+(rollout.run_with_gs), and reports their speed.
 
     python3 chip_smoke.py
 
@@ -87,8 +88,25 @@ Phases (each prints a line; any failure exits non-zero before a result):
               30 steps): finite frames, link ids, frames that follow the
               arm; held-out PSNR, sim2gs error, label shares, seconds per
               stage
+  8a. demos   run_with_gs.collect of one episode (seed 0) of each of the
+              seven tasks' scripted solutions, 1 env x 2 cameras 640x480,
+              the full synthetic scene, sim 100 / control 20, recorded to
+              HDF5 (an in-memory stand-in where h5py is missing) and
+              video: plan ok or failed, success, steps, seconds, ms per
+              control step, the IK's ms per waypoint, overflow, one emit
+              and one compositor launch per rendered step; the success
+              table
+  8b. replay  AlignFr3's and AlignXArm's recorded episodes replayed by
+              replay_h5 through the same wrappers: the recorded frames bit
+              for bit; both kernels vs plain on a replayed state's frames;
+              AlignFr3's first screw move (dry run) and its first 10
+              steps, card against CPU
+  8c. rrt     move_to_pose_with_RRTConnect around the spice rack placed on
+              the straight joint line (every path configuration free; the
+              checker's configurations per ms); an env state checkpoint
+              round trip and GSWorldWrapper(log_state=True)'s bundles
 The lines before the JSON lines repeat the train, render-step, physics,
-closed-loop, EE-mode, xArm-loop, scan-loop and real2sim lines; the
+closed-loop, EE-mode, xArm-loop, scan-loop, real2sim and demo lines; the
 second-to-last line is the kernels JSON, the last the device JSON.  Long
 outputs (profile, ptxas report) go to OUT_DIR, the git-ignored output
 directory of the checkout.
@@ -102,6 +120,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
@@ -152,6 +172,24 @@ PICK_NOISE = 0.005      # GS units: error of 7b's hand-picked link origins
 SCALE_TOL = 1e-6        # recovered scale, relative (tests/test_real2sim.py)
 VIEW_TOL = 1e-5         # rescaled cameras' world_view against the arc's
 SCAN_MOVE_STEPS = 5
+# phase 8: one scripted episode per task through run_with_gs.collect
+DEMO_TASKS = (("AlignFr3Env-v1", "fr3_align"),
+              ("PnpBoxFr3Env-v1", "fr3_pnp_box"),
+              ("StackFr3Env-v1", "fr3_stack"),
+              ("PourMustardFr3Env-v1", "fr3_pour"),
+              ("AlignXArmEnv-v1", "xarm6_align"),
+              ("BananaRotationXArmEnv-v1", "xarm6_rot_banana"),
+              ("SpoonOnBoardXArmEnv-v1", "xarm6_spoon2board"))
+DEMO_REPLAY = ("AlignFr3Env-v1", "AlignXArmEnv-v1")
+DEMO_W, DEMO_H = 640, 480
+DEMO_DRY_TOL = 1e-5     # rad, dry-run waypoints card vs CPU
+DEMO_CPU_STEPS = 10
+# compare_trajectories card vs CPU over the first 10 steps, m and rad:
+# measured on an H100: 0 for every actor, 6.1e-7 qpos RMSE
+DEMO_TRAJ_TOL = 1e-5
+RRT_SWING = 1.2         # rad of joint 1 between 8c's start and goal
+RRT_BATCH = 4096        # configurations per timed checker call
+LOG_STEPS = 3
 
 # Roofline of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # lane instructions (67 TFLOP/s counts an FMA as two), MUFU operations
@@ -1943,7 +1981,7 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
     from gsworld_tpu_torch.envs.tasks.tabletop.franka.align import (
         AlignFr3Env)
     from gsworld_tpu_torch.gs.merge import load_scene_config
-    from gsworld_tpu_torch.gs.model import scene_to_splats
+    from gsworld_tpu_torch.gs.model import SCENE_FIELDS, scene_to_splats
     from gsworld_tpu_torch.gs.ply import load_ply_to_splats, save_splats_to_ply
     from gsworld_tpu_torch.gs.scene_factory import get_scene
     from gsworld_tpu_torch.physics.kinematics import forward_kinematics
@@ -2020,6 +2058,12 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
                              f"{TRAIN_ITERS} iterations")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("7b train: a loss is not finite")
+    bad = {f: int((~torch.isfinite(getattr(scan, f))).reshape(
+               scan.num_gaussians, -1).any(-1).sum())
+           for f in SCENE_FIELDS if getattr(scan, f).is_floating_point()}
+    if any(bad.values()):
+        raise AssertionError(f"7b train: Gaussians with non-finite fields "
+                             f"in the trained scan {bad} (ROADMAP C19)")
     with torch.no_grad():
         out, _ = render_trainable(
             scan, torch.zeros((scan.num_gaussians, 2), device=device),
@@ -2155,6 +2199,518 @@ def phase_scans(psnr5=None):
                 real2sim_loop=loop_counts, lines=[scan_line, r2s_line])
 
 
+# ---------------------------------------------------------------------- #
+# Phase 8: motion planning and demo collection
+# ---------------------------------------------------------------------- #
+
+
+class _MemDataset:
+    """A dataset of the in-memory HDF5 stand-in: one numpy array."""
+
+    def __init__(self, data):
+        self.data = np.array(data)
+        self.attrs = {}
+
+    def __array__(self, dtype=None, copy=None):
+        return self.data if dtype is None else self.data.astype(dtype)
+
+
+class _MemGroup:
+    """A group of the in-memory HDF5 stand-in: named children + attrs."""
+
+    def __init__(self):
+        self.children = {}
+        self.attrs = {}
+
+    def create_group(self, name):
+        return self._put(name, _MemGroup())
+
+    def create_dataset(self, name, data=None, **kw):
+        return self._put(name, _MemDataset(data))
+
+    def _put(self, name, node):
+        *parents, leaf = name.split("/")
+        group = self[("/".join(parents))] if parents else self
+        if leaf in group.children:
+            raise ValueError(f"{name} exists")
+        group.children[leaf] = node
+        return node
+
+    def __getitem__(self, name):
+        node = self
+        for part in (p for p in name.split("/") if p):
+            node = node.children[part]
+        return node
+
+    def keys(self):
+        return self.children.keys()
+
+    def items(self):
+        return self.children.items()
+
+    def copy(self, source, dest, name):
+        import copy as _copy
+        dest._put(name, _copy.deepcopy(source))
+
+
+class _MemFile(_MemGroup):
+    """``h5py.File`` of the stand-in: mode "w" makes an empty root kept
+    under the path (an empty file marks it on disk), mode "r" reads it."""
+
+    store = {}
+
+    def __init__(self, path, mode="r"):
+        super().__init__()
+        path = os.path.abspath(path)
+        if mode == "w":
+            _MemFile.store[path] = self
+            open(path, "wb").close()
+        else:
+            src = _MemFile.store[path]
+            self.children, self.attrs = src.children, src.attrs
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def ensure_h5py():
+    """``h5py`` where it is installed; else an in-memory stand-in in
+    sys.modules["h5py"] with the calls rollout/record.py and replay.py
+    make (the package itself never falls back) -> which one, for the log."""
+    try:
+        import h5py
+        return f"the installed h5py {h5py.__version__}"
+    except ImportError:
+        import types
+        mod = types.ModuleType("h5py")
+        mod.File, mod.Group = _MemFile, _MemGroup
+        sys.modules["h5py"] = mod
+        return ("an in-memory stand-in (h5py is not installed here): "
+                "File, create_group, create_dataset, attrs, keys, items, "
+                "[], copy, close")
+
+
+class DemoProbes:
+    """Instruments one ``collect`` call without changing what it does:
+    every GSWorldWrapper step is timed to a synchronize (the recorder
+    reads each step's frame and state on the host anyway) and its overflow
+    read; each waypoint's IK (MotionPlanningSolver._ik: the replay of
+    its CUDA graph, captured at the solver's first waypoint) is timed the
+    same way; the recorder's frames are kept before its video is written; the
+    wrappers are kept for the replay phase.  Restores everything on
+    exit."""
+
+    def __enter__(self):
+        import torch
+        from gsworld_tpu_torch.rollout import record
+        from gsworld_tpu_torch.rollout.planner import motionplanner
+        from gsworld_tpu_torch.utils.profiling import StepTimer
+        from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
+        self.timer = StepTimer()
+        self.overflow = 0
+        self.resets = 0
+        self.wrappers = []
+        self.frames = None
+        solver = motionplanner.MotionPlanningSolver
+        self._orig = [(solver, "_ik", solver._ik),
+                      (GSWorldWrapper, "step", GSWorldWrapper.step),
+                      (GSWorldWrapper, "reset", GSWorldWrapper.reset),
+                      (record.RecordEpisode, "flush_video",
+                       record.RecordEpisode.flush_video)]
+        ik, step, reset, flush_video = (o[2] for o in self._orig)
+        probes = self
+
+        def timed_ik(planner, *a):
+            with probes.timer.phase("ik"):
+                out = ik(planner, *a)
+                torch.cuda.synchronize()
+            return out
+
+        def timed_step(wrapper, action):
+            with probes.timer.phase("step"):
+                out = step(wrapper, action)
+                torch.cuda.synchronize()
+            probes.overflow = max(probes.overflow, int(
+                wrapper.renderer.last_overflow.max()))
+            return out
+
+        def counted_reset(wrapper, *a, **kw):
+            probes.resets += 1
+            if wrapper not in probes.wrappers:
+                probes.wrappers.append(wrapper)
+            return reset(wrapper, *a, **kw)
+
+        def kept_flush(rec, *a, **kw):
+            if rec._frames:
+                probes.frames = np.stack(rec._frames)
+            return flush_video(rec, *a, **kw)
+
+        solver._ik = timed_ik
+        GSWorldWrapper.step = timed_step
+        GSWorldWrapper.reset = counted_reset
+        record.RecordEpisode.flush_video = kept_flush
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+
+
+def collect_task(env_id, cfg_name, out_dir):
+    """8a: one ``run_with_gs.collect`` episode of ``env_id`` at 640x480 x
+    2 cameras on the full synthetic scene -> (result dict, wrapper)."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.rollout.run_with_gs import collect
+    rc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with DemoProbes() as probes:
+        stats = collect(env_id, cfg_name, num_traj=1, max_seeds=1,
+                        only_count_success=False, save_video=True,
+                        width=DEMO_W, height=DEMO_H, synthetic_scale=1.0,
+                        output_dir=out_dir, seed0=SEED)
+    seconds = time.perf_counter() - t0
+    counts = dict(rc.launch_counts)
+    wrapper, = probes.wrappers
+    check_finite(wrapper.env.state.world, f"8a {env_id}")
+    s = probes.timer.summary()
+    steps = s["step"]["count"]
+    ik = s.get("ik", {"count": 0, "mean_ms": float("nan"),
+                      "p50_ms": float("nan")})
+    plan_ok = stats["failed_plan_rate"] == 0.0
+    with open(os.path.join(out_dir, "trajectory.json")) as f:
+        episodes = json.load(f)["episodes"]
+    if plan_ok != (len(episodes) == 1):
+        raise AssertionError(f"8a {env_id}: plan ok {plan_ok} but "
+                             f"{len(episodes)} episodes recorded")
+    success = bool(episodes[0]["success"]) if episodes else False
+    frames = probes.frames
+    if plan_ok:
+        if episodes[0]["elapsed_steps"] != steps:
+            raise AssertionError(f"8a {env_id}: {steps} steps, "
+                                 f"{episodes[0]['elapsed_steps']} recorded")
+        if frames is None or frames.shape != (steps + 1, DEMO_H, DEMO_W, 3):
+            raise AssertionError(f"8a {env_id}: recorded frames "
+                                 f"{None if frames is None else frames.shape}")
+    renders = steps + probes.resets
+    for name in ("emit_entries", "composite_tiles"):
+        if counts[name] != renders:
+            raise AssertionError(f"8a {env_id}: {name} launched "
+                                 f"{counts[name]} times for {renders} "
+                                 f"renders ({steps} steps, {probes.resets} "
+                                 f"resets)")
+    res = dict(env_id=env_id, plan_ok=plan_ok, success=success, steps=steps,
+               seconds=seconds, step_ms=s["step"]["mean_ms"],
+               step_p50_ms=s["step"]["p50_ms"], ik_calls=ik["count"],
+               ik_ms=ik["mean_ms"], ik_p50_ms=ik["p50_ms"],
+               overflow=probes.overflow, counts=counts, renders=renders,
+               frames=frames,
+               h5=os.path.join(out_dir, "trajectory.h5"))
+    cam = wrapper.env.cameras[0]
+    line = (f"phase 8a demo {env_id} ({cfg_name}), 1 env x "
+            f"{len(wrapper.env.cameras)} cams {cam.width}x{cam.height}, "
+            f"{wrapper.renderer.scene.num_gaussians} Gaussians, sim 100 / "
+            f"control 20: plan {'ok' if plan_ok else 'failed (-1)'}, success "
+            f"{success}, {steps} steps in {seconds:.1f} s (collect, scene "
+            f"build and video included); {res['step_ms']:.2f} ms per control "
+            f"step (median {res['step_p50_ms']:.2f}; physics + render + "
+            f"record, to a synchronize); IK {res['ik_ms']:.2f} ms per "
+            f"waypoint (median {res['ik_p50_ms']:.2f}) over {ik['count']} "
+            f"waypoints, {ik['count'] * res['ik_ms'] / 1e3:.1f} s in all; "
+            f"max overflow {probes.overflow} entries per frame; emit "
+            f"{counts['emit_entries'] / renders:g} and compositor "
+            f"{counts['composite_tiles'] / renders:g} launches per rendered "
+            f"step ({renders} renders)")
+    log(line)
+    return res, line, wrapper
+
+
+def phase_demo_collect(tmp):
+    """8a: every scripted solution's episode through run_with_gs.collect
+    -> ({env_id: result}, lines, {env_id: wrapper} of the replay tasks)."""
+    import torch
+    results, lines, keep = {}, [], {}
+    for env_id, cfg in DEMO_TASKS:
+        res, line, wrapper = collect_task(env_id, cfg,
+                                          os.path.join(tmp, env_id))
+        results[env_id] = res
+        lines.append(line)
+        if env_id in DEMO_REPLAY:
+            keep[env_id] = wrapper
+        del wrapper
+        torch.cuda.empty_cache()
+    rows = " | ".join(f"{k.split('Env')[0]} "
+                      f"{'ok' if r['plan_ok'] else 'plan failed'}, "
+                      f"{'success' if r['success'] else 'no success'}, "
+                      f"{r['steps']} steps" for k, r in results.items())
+    n_ok = sum(r["success"] for r in results.values())
+    table = (f"phase 8a success table, seed {SEED}: {n_ok} of "
+             f"{len(results)} tasks succeed; {rows}")
+    log(table)
+    return results, lines + [table], keep
+
+
+def phase_demo_replay(results, wrappers):
+    """8b: the recorded AlignFr3 and AlignXArm episodes replayed through
+    the same wrappers (frames bit for bit), both kernels against their
+    plain versions on a replayed state's frames, and AlignFr3's first
+    screw move and first steps on the card against the CPU."""
+    import torch
+    from gsworld_tpu_torch.rollout.replay import replay_h5
+    from gsworld_tpu_torch.wrapper.gs_env import world_poses
+    lines = []
+    for env_id in DEMO_REPLAY:
+        res, wrapper = results[env_id], wrappers[env_id]
+        if not res["plan_ok"]:
+            raise AssertionError(f"8b {env_id}: its plan failed, nothing "
+                                 f"to replay")
+        t0 = time.perf_counter()
+        frames = replay_h5(wrapper, res["h5"])
+        dt = time.perf_counter() - t0
+        want = res["frames"][1:]
+        if frames.shape != want.shape or not np.array_equal(frames, want):
+            bad = (int((frames != want).any(-1).sum())
+                   if frames.shape == want.shape else frames.shape)
+            raise AssertionError(f"8b {env_id}: replayed frames differ from "
+                                 f"the recorded ones ({bad})")
+        st = wrapper.env.state
+        phase_kernels(wrapper.renderer, world_poses(st.world, st.task),
+                      phase="8b", timed=False)
+        line = (f"phase 8b replay {env_id}: replay_h5 of the recorded "
+                f"episode renders its {len(frames)} step frames bit for bit "
+                f"the recorded video's ({dt:.1f} s, "
+                f"{1e3 * dt / len(frames):.2f} ms per frame); emit and "
+                f"compositor vs plain on the last replayed state's frames "
+                f"within the phase-3 gates (lines above)")
+        log(line)
+        lines.append(line)
+    lines.append(demo_card_vs_cpu())
+    return lines
+
+
+class _StopEpisode(Exception):
+    pass
+
+
+def first_steps(env, n):
+    """The state dicts of the first ``n`` steps of solveAlignFr3 on the
+    bare ``env`` (render off), as numpy."""
+    from gsworld_tpu_torch.rollout.planner.solutions import solveAlignFr3
+    from gsworld_tpu_torch.rollout.record import _to_np
+    states = []
+    step = env.step
+
+    def recorded_step(action):
+        out = step(action)
+        states.append(_to_np(env.get_state_dict()))
+        if len(states) == n:
+            raise _StopEpisode
+        return out
+
+    env.step = recorded_step
+    try:
+        solveAlignFr3(env, seed=SEED)
+    except _StopEpisode:
+        pass
+    finally:
+        del env.step
+    return {"actors": {k: np.stack([s["actors"][k] for s in states])
+                       for k in states[0]["actors"]},
+            "articulations": {k: np.stack([s["articulations"][k]
+                                           for s in states])
+                              for k in states[0]["articulations"]}}
+
+
+def demo_card_vs_cpu():
+    """8b: AlignFr3Env-v1 (1 env, pd_joint_pos, sim 100 / control 20,
+    render off) on the card and on the CPU from reset(SEED): the dry-run
+    waypoints of solveAlignFr3's first screw move (within DEMO_DRY_TOL
+    rad) and its first DEMO_CPU_STEPS executed steps by
+    compare_trajectories (within DEMO_TRAJ_TOL)."""
+    from gsworld_tpu_torch.rollout.planner.motionplanner import (
+        FR3UmiMotionPlanningSolver)
+    from gsworld_tpu_torch.rollout.planner.solutions import (
+        TOPDOWN_Q, _actor_pos)
+    from gsworld_tpu_torch.rollout.replay import compare_trajectories
+    kw = dict(control_mode="pd_joint_pos",
+              sim_config=dict(sim_freq=100, control_freq=20))
+    card = make_env(1, "cuda", True, **kw)
+    cpu = make_env(1, "cpu", False, **kw)
+    wps = []
+    for env, graph in ((card, True), (card, False), (cpu, False)):
+        env.reset(seed=SEED)
+        env.graph = graph
+        planner = FR3UmiMotionPlanningSolver(env)
+        grasp = _actor_pos(env, "dtc_green_can_fr3") + np.array(
+            [0, 0, 0.03], np.float32)
+        tcp, _ = planner.tcp_pose()
+        z_keep = max(float(tcp[2]), float(grasp[2] + 0.10))
+        wps.append(planner.move_to_pose_with_screw(
+            np.array([grasp[0], grasp[1], z_keep], np.float32), TOPDOWN_Q,
+            dry_run=True, speed=0.6))
+    card.graph = True
+    if -1 in wps or len({len(w) for w in wps}) != 1:
+        raise AssertionError(f"8b: dry run card (graph, eager) vs CPU "
+                             f"{[len(w) for w in wps]} waypoints")
+    if not np.array_equal(np.stack(wps[0]), np.stack(wps[1])):
+        raise AssertionError("8b: the IK's graph and eager waypoints differ")
+    dry = float(np.abs(np.stack(wps[0]) - np.stack(wps[2])).max())
+    if dry > DEMO_DRY_TOL:
+        raise AssertionError(f"8b: dry-run waypoints card vs CPU {dry:.3g}")
+    m = compare_trajectories(first_steps(card, DEMO_CPU_STEPS),
+                             first_steps(cpu, DEMO_CPU_STEPS))
+    worst = max(m.values())
+    if worst > DEMO_TRAJ_TOL:
+        raise AssertionError(f"8b: first {DEMO_CPU_STEPS} steps card vs "
+                             f"CPU {m}")
+    line = (f"phase 8b card vs CPU, AlignFr3Env-v1 from reset({SEED}): the "
+            f"first screw move's {len(wps[0])} dry-run waypoints, the IK's "
+            f"CUDA graph bit for bit its eager solve on the card, within "
+            f"{dry:.3g} rad of the CPU's (<= {DEMO_DRY_TOL}); the first "
+            f"{DEMO_CPU_STEPS} "
+            f"executed steps (render off) by compare_trajectories: "
+            f"{ {k: float(f'{v:.3g}') for k, v in m.items()} } (each <= "
+            f"{DEMO_TRAJ_TOL})")
+    log(line)
+    return line
+
+
+def phase_demo_rrt(tmp):
+    """8c: RRT-Connect around an obstacle on the card, an env state
+    checkpoint round trip and the wrapper's state log."""
+    import torch
+    from gsworld_tpu_torch.render.camera import RasterConfig
+    from gsworld_tpu_torch.rollout.planner import rrt
+    from gsworld_tpu_torch.rollout.planner.motionplanner import (
+        FR3UmiMotionPlanningSolver)
+    from gsworld_tpu_torch.utils.checkpoint import (load_env_state,
+                                                    save_env_state)
+    from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
+    env = make_env(1, "cuda", True, control_mode="pd_joint_pos",
+                   sim_config=dict(sim_freq=100, control_freq=20))
+    env.reset(seed=SEED)
+    planner = FR3UmiMotionPlanningSolver(env)
+    act = list(env.agent.arm_dof_ids)
+    w = env.state.world
+    q0 = w.qpos[0].clone()
+    q1, mid = q0.clone(), q0.clone()
+    q1[act[0]] += RRT_SWING
+    mid[act[0]] += RRT_SWING / 2
+    p_mid, _ = planner._fk(mid, w.root_pos[0], w.root_quat[0])
+    p_goal, q_goal = planner._fk(q1, w.root_pos[0], w.root_quat[0])
+    a_pos = w.a_pos.clone()
+    a_pos[0, env.actor_index["spice_rack"]] = p_mid - torch.tensor(
+        [0.0, 0.0, 0.08], device=p_mid.device)
+    env._state = env.state.replace(world=w.replace(a_pos=a_pos))
+    check = rrt.make_collision_checker(env)
+    args = (a_pos[0], w.a_quat[0], w.root_pos[0], w.root_quat[0])
+    paths = []
+    plan = rrt.rrt_connect
+
+    def kept(*a, **kw):
+        paths.append(plan(*a, **kw))
+        return paths[-1]
+
+    rrt.rrt_connect = kept
+    t0 = time.perf_counter()
+    try:
+        res = planner.move_to_pose_with_RRTConnect(
+            p_goal.cpu().numpy(), q_goal.cpu().numpy())
+    finally:
+        rrt.rrt_connect = plan
+    dt = time.perf_counter() - t0
+    if res == -1 or not paths or paths[0] is None:
+        raise AssertionError("8c: RRT-Connect found no path")
+    path = paths[0]
+    blocked = not rrt._edge_free(check, path[0], path[-1], args)[0]
+    hits = int(check(path, *args).sum())
+    if not blocked or hits:
+        raise AssertionError(f"8c: straight line blocked {blocked}, "
+                             f"{hits} path configurations in collision")
+    gen = torch.Generator().manual_seed(SEED)
+    lim = torch.as_tensor(env.agent.model.qlimits, dtype=torch.float32)
+    batch = (lim[:, 0] + (lim[:, 1] - lim[:, 0])
+             * torch.rand((RRT_BATCH, lim.shape[0]), generator=gen)).to(env.device)
+    check_ms = cuda_ms(lambda: check(batch, *args), reps=10)
+    line = (f"phase 8c RRT: move_to_pose_with_RRTConnect from the AlignFr3 "
+            f"reset to the TCP pose of joint 1 turned by {RRT_SWING} rad, the "
+            f"spice rack where the straight joint line passes (blocked): a "
+            f"path of {len(path)} densified configurations, every one free "
+            f"by the checker, planned and followed in {dt:.2f} s; the checker "
+            f"does {RRT_BATCH / check_ms:.1f} configurations per ms "
+            f"({check_ms:.3f} ms for {RRT_BATCH})")
+    log(line)
+
+    state = env.state
+    back = load_env_state(save_env_state(state, os.path.join(tmp, "st.npz")),
+                          like=state)
+    if not states_equal(back, state):
+        raise AssertionError("8c: the env state checkpoint does not round "
+                             "trip bit for bit")
+    log_dir = os.path.join(tmp, "state_log")
+    env.reset(seed=SEED)
+    env.cameras = [dataclasses.replace(c, width=DEMO_W, height=DEMO_H)
+                   for c in env.cameras]
+    wrapper = GSWorldWrapper(env, "fr3_align",
+                             raster_config=RasterConfig(width=DEMO_W,
+                                                        height=DEMO_H),
+                             synthetic_sizes=BENCH_SIZES, log_state=True,
+                             state_log_path=log_dir)
+    wrapper.reset(seed=SEED)
+    states = []
+    for _ in range(LOG_STEPS):
+        wrapper.step(planner._action(planner._arm(env.state.world.qpos[0]),
+                                     planner.OPEN))
+        states.append(env.state)
+    files = sorted(os.listdir(log_dir))
+    if files != [f"state_{i:06d}.npz" for i in range(LOG_STEPS)] or not all(
+            states_equal(load_env_state(os.path.join(log_dir, f), like=s), s)
+            for f, s in zip(files, states)):
+        raise AssertionError(f"8c: state log {files} does not load back "
+                             f"equal")
+    line2 = (f"phase 8c checkpoint: save_env_state / load_env_state of a "
+             f"card state round trips bit for bit; GSWorldWrapper(log_state="
+             f"True) wrote {len(files)} bundles in {LOG_STEPS} steps, each "
+             f"loading back bit for bit the state after its step")
+    log(line2)
+    return [line, line2]
+
+
+def states_equal(a, b):
+    import torch
+    from gsworld_tpu_torch.physics.world import WORLD_FIELDS
+    return (all(torch.equal(getattr(a.world, f), getattr(b.world, f))
+                for f in WORLD_FIELDS if getattr(b.world, f) is not None)
+            and torch.equal(a.elapsed, b.elapsed)
+            and torch.equal(a.prev_target, b.prev_target)
+            and a.task.keys() == b.task.keys()
+            and all(torch.equal(a.task[k], b.task[k]) for k in a.task))
+
+
+def phase_demos():
+    """Phases 8a-8c under a temporary directory removed after them ->
+    (launch counts of 8a, lines)."""
+    import tempfile
+    import torch
+    log(f"phase 8 h5py: {ensure_h5py()}")
+    with tempfile.TemporaryDirectory(prefix="gsw_demos_") as tmp:
+        results, lines, wrappers = phase_demo_collect(tmp)
+        lines += phase_demo_replay(results, wrappers)
+        del wrappers
+        torch.cuda.empty_cache()
+        lines += phase_demo_rrt(tmp)
+    counts = {k: sum(r["counts"][k] for r in results.values())
+              for k in ("emit_entries", "composite_tiles", "composite_bwd")}
+    torch.cuda.empty_cache()
+    return counts, lines
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -2167,6 +2723,9 @@ def main(argv=None):
                          "result line")
     ap.add_argument("--scans-only", action="store_true",
                     help="run phases 1, 2, 7a and 7b only and print no "
+                         "result line")
+    ap.add_argument("--demos-only", action="store_true",
+                    help="run phases 1, 2 and 8a-8c only and print no "
                          "result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2181,6 +2740,9 @@ def main(argv=None):
     phase_build()
     if args.scans_only:
         phase_scans()
+        return           # a partial run prints no result line
+    if args.demos_only:
+        phase_demos()
         return           # a partial run prints no result line
     t0 = time.perf_counter()
     renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
@@ -2223,6 +2785,7 @@ def main(argv=None):
     del wrapper, st, poses
     torch.cuda.empty_cache()
     scans = phase_scans(psnr5)
+    demo_counts, demo_lines = phase_demos()
     # launches: the render path's for its kernels, the training path's for
     # the backward (every path's counts are in the lines below); the
     # closed loop's launches of the forward kernels ride along
@@ -2230,6 +2793,7 @@ def main(argv=None):
         k["launches"] = (train_counts if k["name"] == "composite_bwd"
                          else counts)[k["name"]]
         k["real2sim_train_launches"] = scans["train"][k["name"]]
+        k["demo_loop_launches"] = demo_counts[k["name"]]
         if k["name"] != "composite_bwd":
             k["closed_loop_launches"] = loop_counts[k["name"]]
             k["xarm_loop_launches"] = xarm_counts[k["name"]]
@@ -2238,7 +2802,7 @@ def main(argv=None):
     log(train_line)          # repeated here so the end of the log holds them
     log(slice_line)
     for line in (physics_lines + loop_lines + ee_lines + [xarm_line]
-                 + scans["lines"]):
+                 + scans["lines"] + demo_lines):
         log(line)
     line = json.dumps({"kernels": kernels})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:

@@ -4,9 +4,12 @@ gsworld_tpu/physics/contact.py).
 Every collider is a static-size set of convex support points plus its
 convex-hull face planes.  Contact generation is dense and static-shaped:
 
-  * points vs. plane      : exact for convex shapes;
+  * points vs. plane      : exact for convex shapes
+    (:func:`points_vs_plane`);
   * points vs. hull faces : SAT quantities of a point set against a hull
-    (:func:`hull_query_sat`), run in both directions for each pair.
+    (:func:`hull_query_sat`), run in both directions for each pair;
+    :func:`points_vs_hull` gives each point's depth and least-penetrated
+    face (the planner's collision checker).
 
 Every candidate contact always exists as a row; an ``active`` mask selects
 the penetrating ones.  No shape depends on the data, so a step never asks
@@ -72,6 +75,44 @@ class ContactSet(NamedTuple):
 def transform_points(pos, quat, pts):
     """Body-frame points (..., K, 3) -> world, poses (..., 3), (..., 4)."""
     return quat_rotate(quat[..., None, :], pts) + pos[..., None, :]
+
+
+def points_vs_plane(pts_w, plane):
+    """Points (..., K, 3) vs a (bounded) plane.
+
+    plane: (4,) = (n, d) with n.x + d = height above, or (8,) =
+    (n, d, xmin, xmax, ymin, ymax) restricting contact to an xy region
+    (a bounded tabletop).  Returns (pen (..., K), normal (..., K, 3),
+    pos (..., K, 3))."""
+    n = plane[:3]
+    pen = -(pts_w @ n + plane[3])
+    if plane.shape[0] >= 8:
+        x, y = pts_w[..., 0], pts_w[..., 1]
+        inside = ((x >= plane[4]) & (x <= plane[5])
+                  & (y >= plane[6]) & (y <= plane[7]))
+        pen = torch.where(inside, pen, -1.0)
+    return pen, n.expand(pts_w.shape), pts_w
+
+
+def points_vs_hull(pts_w, hull_pose_pos, hull_pose_quat, faces):
+    """Points (..., K, 3) vs a convex hull with faces (..., F, 4) in the
+    hull's body frame at world pose (pos (..., 3), quat (..., 4)).
+
+    Returns (pen (..., K), normal_w (..., K, 3), pos (..., K, 3)): a
+    point penetrates when it is behind all faces; depth = -max_f signed
+    distance; normal = the world normal of the least-penetrated
+    (separating) face, pointing out of the hull."""
+    Rh = quat_to_matrix(hull_pose_quat)                        # (..., 3, 3)
+    local = torch.einsum("...ji,...kj->...ki", Rh,
+                         pts_w - hull_pose_pos[..., None, :])
+    sd = (local @ faces[..., :3].transpose(-1, -2)
+          + faces[..., None, :, 3])                            # (..., K, F)
+    max_sd, best = sd.max(dim=-1)                              # first max
+    # the separating face's normal per point, as an exact one-hot product
+    onehot = torch.nn.functional.one_hot(best, faces.shape[-2]).to(sd.dtype)
+    n_local = onehot @ faces[..., :3]                          # (..., K, 3)
+    normal_w = torch.einsum("...ij,...kj->...ki", Rh, n_local)
+    return -max_sd, normal_w, pts_w
 
 
 def hull_query_sat(pts_w, hull_pose_pos, hull_pose_quat, faces,

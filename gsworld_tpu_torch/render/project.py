@@ -43,6 +43,12 @@ def project_gaussians(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig,
     pz = r[2][0] * mx + r[2][1] * my + r[2][2] * mz + tv[2]
     depth = pz
     valid = depth > cfg.znear_cull
+    # A culled Gaussian's projection is never used, but near the camera
+    # plane (depth ~ 0) its 1/z terms overflow, and in the backward its
+    # zero gradient times an infinite local derivative is NaN, which Adam
+    # writes into the Gaussian.  It is computed at depth 1 instead (the
+    # JAX package divides by the depth itself).
+    pz = torch.where(valid, pz, torch.ones_like(pz))
 
     tanfovx = cam.tanfovx[..., None]
     tanfovy = cam.tanfovy[..., None]
@@ -74,7 +80,7 @@ def project_gaussians(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig,
     # EWA: T = J Rv rows, cov2d = T Sigma T^T
     focal_x = cfg.width / (2.0 * tanfovx)
     focal_y = cfg.height / (2.0 * tanfovy)
-    tz = depth
+    tz = pz
     limx = 1.3 * tanfovx
     limy = 1.3 * tanfovy
     tx = torch.minimum(torch.maximum(px / tz, -limx), limx) * tz

@@ -253,15 +253,21 @@ class GSWorldWrapper:
     """Wraps a GsBaseEnv; obs['sensor_data'][cam]['rgb'] becomes the GS
     render (uint8, (B, H, W, 3)) of the state after each reset and step,
     with an int16 'segmentation' (B, H, W, 1) when the env's obs_mode asks
-    for it.  Attributes it does not define are the env's."""
+    for it.  With ``log_state`` each step also saves the state
+    (``save_state_log``).  Attributes it does not define are the env's."""
 
     def __init__(self, env: GsBaseEnv, scene_gs_cfg_name: str,
                  raster_config: Optional[RasterConfig] = None,
                  asset_dir: Optional[str] = None,
                  cfg_dir: Optional[str] = None,
                  synthetic_sizes: Optional[dict] = None,
+                 log_state: bool = False,
+                 state_log_path: str = "./exp_log",
                  device=None):
         self.env = env
+        self.log_state = log_state
+        self.state_log_path = state_log_path
+        self._state_log_count = 0
         self.num_envs = env.num_envs
         self.scene_gs_cfg_name = scene_gs_cfg_name
         device = env.device if device is None else torch.device(device)
@@ -299,7 +305,18 @@ class GSWorldWrapper:
         (self.env._state, obs, reward, terminated, truncated,
          info) = self._step_and_render(self.env._state,
                                        self.env._as_action(action))
+        if self.log_state:
+            self.save_state_log()
         return obs, reward, terminated, truncated, info
+
+    def save_state_log(self) -> str:
+        """Save the current env state as a restorable bundle,
+        ``<state_log_path>/state_<n>.npz`` (utils/checkpoint.py
+        ``load_env_state`` reads it) -> its path."""
+        from gsworld_tpu_torch.utils.checkpoint import save_env_state
+        path = f"{self.state_log_path}/state_{self._state_log_count:06d}.npz"
+        self._state_log_count += 1
+        return save_env_state(self.env._state, path)
 
     def render_current_step(self) -> dict:
         """Render without stepping."""

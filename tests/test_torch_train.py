@@ -58,6 +58,7 @@ from gsworld_tpu_torch.train3dgs.train import (
     make_train_step,
     render_trainable,
 )
+from torch_physics_common import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -294,6 +295,41 @@ def test_train_step_matches_jax():
         assert np.abs(a).max() > 0, k
         np.testing.assert_allclose(b / np.abs(a).max(), a / np.abs(a).max(),
                                    atol=1e-4, err_msg=k)
+
+
+def test_culled_gaussians_get_finite_gradients():
+    """Gaussians on the camera plane (depth 0) and behind the camera are
+    culled; their projection's 1/z terms must not turn their zero
+    gradient into NaN (0 x inf), which Adam would write into the scene
+    (ROADMAP C19).  Every gradient of a train step's render is finite, the
+    culled Gaussians' zero, and the visible ones' unchanged."""
+    cfg = RasterConfig(width=48, height=48)
+    _, cam = _cam(0.0)                    # identity rotation, z + 2
+    fields = _fields(j_scene_from_splats(_splats(40, 4, log_scale_mean=0.0)))
+    fields["means"][0] = [0.3, 0.1, -2.0]       # depth exactly 0
+    fields["means"][1] = [-0.2, 0.0, -2.5]      # behind the camera
+
+    def grads(scene):
+        leaves = {f: getattr(scene, f).clone().requires_grad_(True)
+                  for f in TRAINABLE}
+        d2d = torch.zeros((scene.num_gaussians, 2), requires_grad=True)
+        img, radii = render_trainable(
+            type(scene)(**{**{f: getattr(scene, f) for f in SCENE_FIELDS},
+                           **leaves}), d2d, cam, cfg)
+        g = torch.autograd.grad(img.square().sum(), list(leaves.values()))
+        return dict(zip(TRAINABLE, g)), radii
+
+    g, radii = grads(scene_from_numpy(fields, device="cpu"))
+    assert radii[:2].tolist() == [0, 0] and (radii[2:] > 0).any()
+    for f, v in g.items():
+        assert torch.isfinite(v).all(), f
+        assert not v[:2].any(), f
+    # the visible Gaussians' gradients do not depend on the culled ones
+    rest = {f: v[2:] for f, v in fields.items()}
+    g_rest, _ = grads(scene_from_numpy(rest, device="cpu"))
+    for f in TRAINABLE:
+        torch.testing.assert_close(g[f][2:], g_rest[f], rtol=1e-5,
+                                   atol=1e-7)
 
 
 def test_holdout_psnr():
