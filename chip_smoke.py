@@ -7,8 +7,10 @@ drives the GS render half of the AlignFr3 step (GSWorldRenderer.render),
 step of AlignFr3Env-v1 and the closed loop (rollout.random_actions) at
 full size, then the end-effector control modes, the other six tasks, the
 xArm closed loop with domain randomization, the closed loop on merged
-real-scan PLYs, the real2sim toolchain and scripted demo collection
-(rollout.run_with_gs), and reports their speed.
+real-scan PLYs, the real2sim toolchain, scripted demo collection
+(rollout.run_with_gs), the env axis split into shards (dist) and the
+bench raster's fidelity against its uncapped render, and reports their
+speed.
 
     python3 chip_smoke.py
 
@@ -105,8 +107,29 @@ Phases (each prints a line; any failure exits non-zero before a result):
               the straight joint line (every path configuration free; the
               checker's configurations per ms); an env state checkpoint
               round trip and GSWorldWrapper(log_state=True)'s bundles
+  9a. shard   rollout_fps(shard=True) over env_mesh() (every visible card)
+              at 4 envs x 2 cameras 640x480 for 30 steps, one emit and one
+              compositor launch per shard per step; the loop split into 2
+              shards on one card (dist.sharded.ShardedLoop over
+              ["cuda:0", "cuda:0"]), and over every card where more than
+              one is visible, against the unsharded loop from the
+              same reset(seed) and actions: step 1's frames (max |diff|
+              <= 1 count, segmentation >= 99.9% equal; the first field that
+              differs, if any), every WorldState field within 1e-5 after
+              10 steps, mean_across_envs of the reward within 1e-6 of the
+              unsharded mean, ms per step of both; init_distributed (NCCL,
+              world size 1, a file store under OUT_DIR) and its all_reduce
+              mean against the local mean
+  9b. fidelity tools/render_parity.py on phase 4's 10 render states: the
+              bench raster against the render with D = the tile count and
+              E doubled from 2^19 until nothing drops, per camera uint8
+              PSNR (min, median), max |diff|, segmentation agreement, the
+              entries the bench render dropped and those its D cap shrank;
+              emit and compositor vs plain on env 0's 2 frames of the
+              first state at the lifted shape (phase 3's gates)
 The lines before the JSON lines repeat the train, render-step, physics,
-closed-loop, EE-mode, xArm-loop, scan-loop, real2sim and demo lines; the
+closed-loop, EE-mode, xArm-loop, scan-loop, real2sim, demo, shard and
+fidelity lines; the
 second-to-last line is the kernels JSON, the last the device JSON.  Long
 outputs (profile, ptxas report) go to OUT_DIR, the git-ignored output
 directory of the checkout.
@@ -158,6 +181,11 @@ PHYS_POS_TOL = 1e-5
 PHYS_VEL_TOL = 1e-3
 REST_STEPS = 40
 LOOP_STEPS = 30
+SHARDS = 2              # 9a: shards of the split loop on one card
+SHARD_STEPS = 10
+SHARD_STATE_TOL = 1e-5  # every WorldState field after SHARD_STEPS steps
+SHARD_MEAN_TOL = 1e-6   # mean_across_envs against the unsharded mean
+SEG_AGREE_MIN = 0.999
 LOOP_STEPS_64 = 3
 EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose")
 OTHER_TASKS = ("PnpBoxFr3Env-v1", "PourMustardFr3Env-v1", "StackFr3Env-v1",
@@ -543,15 +571,16 @@ def emit_bound(cnt, E):
     return bound_of(50 * int(cnt.sum()), emitting, nbytes)
 
 
-def render_inputs(renderer, state, tint=None):
+def render_inputs(renderer, state, tint=None, cfg=None):
     """Projections of every frame (env x camera) of one render step, as
     the render path builds them (colours times the per-Gaussian ``tint``
-    (B, N, 3) where given) -> (Projected (F, N, ...), leading shape)."""
+    (B, N, 3) where given; the renderer's raster config unless ``cfg``)
+    -> (Projected (F, N, ...), leading shape)."""
     import torch
     from gsworld_tpu_torch.render.rasterize import project_frames
     with torch.no_grad():
         posed, cams = renderer.frames(state)
-        return project_frames(posed, cams, renderer.raster_config,
+        return project_frames(posed, cams, cfg or renderer.raster_config,
                               renderer.scene.sh0, renderer.scene.shN,
                               None if tint is None else tint[:, None])
 
@@ -661,17 +690,19 @@ def check_emit(phase, what, plan, cfg, timed=True):
     return entry, gaus_k, starts_k
 
 
-def phase_kernels(renderer, state, phase=3, tint=None, timed=True):
+def phase_kernels(renderer, state, phase=3, tint=None, timed=True,
+                  cfg=None):
     """Emit and compositor kernels vs plain versions on the frames of one
     render step (every env x camera), with the inputs the render path
-    builds for them (tinted by ``tint`` where given).  ``timed`` adds the
-    times, the bounds and the worst pixel."""
+    builds for them (tinted by ``tint`` where given; with the renderer's
+    raster config unless ``cfg``).  ``timed`` adds the times, the bounds
+    and the worst pixel."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.render.binning import plan_emit
 
-    cfg = renderer.raster_config
-    proj, lead = render_inputs(renderer, state, tint)
+    cfg = cfg or renderer.raster_config
+    proj, lead = render_inputs(renderer, state, tint, cfg)
     with torch.no_grad():
         plan = plan_emit(proj, cfg)
     a = plan.args
@@ -2711,6 +2742,222 @@ def phase_demos():
     return counts, lines
 
 
+def obs_leaves(tree, prefix=""):
+    """(path, tensor) of every leaf of a nested observation dict, in key
+    order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from obs_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def step_ms(step):
+    """Host-clock ms of ``step()`` ended by a synchronize."""
+    import torch
+    t0 = time.perf_counter()
+    out = step()
+    torch.cuda.synchronize()
+    return 1000.0 * (time.perf_counter() - t0), out
+
+
+def shard_vs_unsharded(env, wrapper, mesh):
+    """The loop split over ``mesh`` against the unsharded loop from the
+    same reset(seed) and the same actions: frames of step 1, the state
+    after SHARD_STEPS steps, the reward's mean_across_envs, launches per
+    shard per step, ms per step of both -> (the phase's line, the
+    sharded step's rewards)."""
+    import torch
+    from gsworld_tpu_torch.dist import mesh as M
+    from gsworld_tpu_torch.dist.sharded import ShardedLoop
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    t0 = time.perf_counter()
+    n = len(mesh)
+    loop = ShardedLoop(wrapper, mesh)
+    wrapper.reset(seed=SEED)
+    loop.reset(seed=SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    ms_u, ms_s, first = [], [], None
+    for i in range(SHARD_STEPS):
+        a = env.action_space_sample(gen)
+        t_u, out_u = step_ms(lambda: wrapper.step(a))
+        rc.reset_launch_counts()
+        t_s, out_s = step_ms(lambda: loop.step(a))
+        if any(rc.launch_counts[k] != n
+               for k in ("emit_entries", "composite_tiles")):
+            raise AssertionError(f"9a: launches per sharded step "
+                                 f"{rc.launch_counts}, want {n} of emit "
+                                 f"and compositor")
+        if i == 0:           # the first step captures the physics graphs
+            first = (out_u, out_s)
+        else:
+            ms_u.append(t_u)
+            ms_s.append(t_s)
+    (obs_u, *_), (obs_s, *_) = first
+    leaves_u = dict(obs_leaves(obs_u))
+    differ = [k for k, v in obs_leaves(obs_s)
+              if not torch.equal(v.to(leaves_u[k].device), leaves_u[k])]
+    rgb_err, seg_agree = 0, []
+    for c in obs_u["sensor_data"]:
+        su, ss = obs_u["sensor_data"][c], obs_s["sensor_data"][c]
+        rgb_err = max(rgb_err, int((su["rgb"].int() - ss["rgb"].int())
+                                   .abs().max()))
+        seg_agree.append(float((su["segmentation"] == ss["segmentation"])
+                               .float().mean()))
+    if rgb_err > 1 or min(seg_agree) < SEG_AGREE_MIN:
+        raise AssertionError(f"9a: step 1 frames differ by {rgb_err} "
+                             f"counts, segmentation {seg_agree}")
+    wd = world_diff(loop.state.world, env.state.world)
+    bad = {f: d for f, (eq, d) in wd.items() if d > SHARD_STATE_TOL}
+    if bad:
+        raise AssertionError(f"9a: WorldState after {SHARD_STEPS} steps "
+                             f"differs beyond {SHARD_STATE_TOL}: {bad}")
+    state_first = next((f for f, (eq, _) in wd.items() if not eq), None)
+    r_u, r_s = out_u[1], out_s[1]
+    mean_err = abs(float(M.mean_across_envs(list(r_s.tensor_split(n))))
+                   - float(r_u.mean()))
+    if mean_err > SHARD_MEAN_TOL:
+        raise AssertionError(f"9a: mean_across_envs of the reward differs "
+                             f"from the unsharded mean by {mean_err:.3g}")
+    b = NUM_ENVS // n
+    line = (f"phase 9a {n} shards on {[str(d) for d in mesh]} "
+            f"({' + '.join([str(b)] * n)} envs) vs the unsharded "
+            f"{NUM_ENVS}-env loop from reset({SEED}), same actions: step 1 "
+            + ("every observation bit for bit" if not differ else
+               f"first differing observation field {differ[0]} "
+               f"({len(differ)} fields)")
+            + f", frames max |diff| {rgb_err} counts, segmentation equal "
+            f"{min(seg_agree):.6f}; WorldState after {SHARD_STEPS} steps "
+            + ("bit for bit" if state_first is None else
+               f"first differing field {state_first}, max |diff| "
+               f"{max(d for _, d in wd.values()):.3g}")
+            + f" (gate {SHARD_STATE_TOL}); mean_across_envs(reward) - "
+            f"unsharded mean {mean_err:.3g} (gate {SHARD_MEAN_TOL}); "
+            f"{n} emit and {n} compositor launches per sharded step; ms per "
+            f"step (host clock, synchronized, median of steps "
+            f"2-{SHARD_STEPS}) sharded {statistics.median(ms_s):.3f}, "
+            f"unsharded {statistics.median(ms_u):.3f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    log(line)
+    return line, r_s
+
+
+def phase_shard():
+    """9a: rollout_fps(shard=True) over env_mesh() (every visible card);
+    the loop split into SHARDS shards on one card (and over every card,
+    where there are more) against the unsharded loop; init_distributed
+    (NCCL, world size 1, a file store under OUT_DIR) with
+    mean_across_envs's all_reduce against the local mean."""
+    import torch
+    import torch.distributed as dist
+    from gsworld_tpu_torch.dist import mesh as M
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.rollout.random_actions import rollout_fps
+    t0 = time.perf_counter()
+    env, wrapper = bench_build("AlignFr3Env-v1", NUM_ENVS, "fr3_align")
+    mesh = M.env_mesh()
+    fps, spf, frames = rollout_fps(wrapper, LOOP_STEPS, seed=SEED,
+                                   shard=True,
+                                   on_timed_start=rc.reset_launch_counts)
+    counts = dict(rc.launch_counts)
+    for name in ("emit_entries", "composite_tiles"):
+        if counts[name] != LOOP_STEPS * len(mesh):
+            raise AssertionError(f"9a: {name} launched {counts[name]} times "
+                                 f"in {LOOP_STEPS} steps over {len(mesh)} "
+                                 f"shards")
+    cam = env.cameras[0]
+    if frames.shape != (NUM_ENVS, cam.height, cam.width, 3):
+        raise AssertionError(f"9a: frames {frames.shape}")
+    lines = [f"phase 9a rollout_fps(shard=True), env_mesh() = "
+             f"{[str(d) for d in mesh]}, {NUM_ENVS} envs x "
+             f"{len(env.cameras)} cams {cam.width}x{cam.height}, "
+             f"{LOOP_STEPS} steps: {fps:.2f} env-steps/s, "
+             f"{1000.0 * spf:.3f} ms per step (host clock), launches "
+             f"{counts} ({time.perf_counter() - t0:.1f} s)"]
+    log(lines[0])
+    meshes = [M.env_mesh(["cuda:0"] * SHARDS)] + ([mesh] if len(mesh) > 1
+                                                   else [])
+    for m in meshes:
+        line, rewards = shard_vs_unsharded(env, wrapper, m)
+        lines.append(line)
+
+    # the process group: NCCL, one process, a file store (no network)
+    store = os.path.join(OUT_DIR, "dist_store")
+    if os.path.exists(store):
+        os.remove(store)
+    parts = list(rewards.tensor_split(len(m)))
+    local = M.mean_across_envs(parts)
+    M.init_distributed(init_method=f"file://{store}", rank=0, world_size=1)
+    if not dist.is_initialized():
+        raise AssertionError("9a: init_distributed formed no process group")
+    backend = dist.get_backend()
+    try:
+        reduced = M.mean_across_envs(parts)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    red_err = abs(float(reduced) - float(local))
+    if red_err > SHARD_MEAN_TOL:
+        raise AssertionError(f"9a: all_reduce mean differs by {red_err:.3g}")
+    line = (f"phase 9a init_distributed ({backend}, world size 1, a file "
+            f"store): mean_across_envs through all_reduce - the local mean "
+            f"{red_err:.3g} (gate {SHARD_MEAN_TOL}) "
+            f"({time.perf_counter() - t0:.1f} s for 9a)")
+    log(line)
+    lines.append(line)
+    del env, wrapper
+    torch.cuda.empty_cache()
+    return counts, lines
+
+
+def phase_fidelity():
+    """9b: tools/render_parity.py on the STEPS render states of phase 4:
+    the bench raster against the render with D = the tile count and E
+    doubled from 2^19 until nothing drops; then emit and compositor
+    against their plain versions on env 0's frames of the first state at
+    the lifted shape, with phase 3's gates."""
+    import torch
+    from gsworld_tpu_torch.envs.base import EnvPoses
+    from gsworld_tpu_torch.tools import render_parity as rp
+    t0 = time.perf_counter()
+    renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
+    states = random_states(renderer.env, STEPS, "cuda")
+    res = rp.compare(renderer, states)
+    lines = []
+    for cam, d in res["cameras"].items():
+        line = (f"phase 9b fidelity {cam}, {len(states)} states x "
+                f"{NUM_ENVS} envs, bench (D={res['bench']['D']}, "
+                f"E={res['bench']['E']}) vs lifted (D={res['lifted']['D']}, "
+                f"E={res['lifted']['E']}): uint8 PSNR min "
+                f"{d['psnr_min']:.2f} dB, median {d['psnr_median']:.2f} "
+                f"(E budget alone, bench D with the lifted E: min "
+                f"{d['psnr_e_min']:.2f}, median {d['psnr_e_median']:.2f}), "
+                f"max |diff| {d['max_abs_diff']}, segmentation agreement "
+                f"{d['seg_agreement']:.6f}; bench overflow (E budget) per "
+                f"frame max {d['dropped_max']} mean {d['dropped_mean']:.1f}; "
+                f"pre-cull entries the D cap shrank per frame max "
+                f"{d['d_cap_max']} mean {d['d_cap_mean']:.1f}")
+        log(line)
+        lines.append(line)
+    lifted = rp.lifted_config(renderer.raster_config, res["lifted"]["E"])
+    s0 = states[0]
+    one = EnvPoses(qpos=s0.qpos[:1], a_pos=s0.a_pos[:1],
+                   a_quat=s0.a_quat[:1])
+    phase_kernels(renderer, one, phase="9b", timed=False, cfg=lifted)
+    line = (f"phase 9b kernels at the lifted shape "
+            f"(D={lifted.max_tiles_per_gaussian}, E={lifted.max_entries}, "
+            f"env 0's "
+            f"{len(renderer.env.cameras)} frames of state 0): emit and "
+            f"compositor within phase 3's gates (lines above) "
+            f"({time.perf_counter() - t0:.1f} s for 9b)")
+    log(line)
+    lines.append(line)
+    del renderer, states
+    torch.cuda.empty_cache()
+    return lines
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -2726,6 +2973,9 @@ def main(argv=None):
                          "result line")
     ap.add_argument("--demos-only", action="store_true",
                     help="run phases 1, 2 and 8a-8c only and print no "
+                         "result line")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="run phases 1, 2, 9a and 9b only and print no "
                          "result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2743,6 +2993,10 @@ def main(argv=None):
         return           # a partial run prints no result line
     if args.demos_only:
         phase_demos()
+        return           # a partial run prints no result line
+    if args.dist_only:
+        phase_shard()
+        phase_fidelity()
         return           # a partial run prints no result line
     t0 = time.perf_counter()
     renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
@@ -2786,6 +3040,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     scans = phase_scans(psnr5)
     demo_counts, demo_lines = phase_demos()
+    t9 = time.perf_counter()
+    shard_counts, shard_lines = phase_shard()
+    shard_lines += phase_fidelity()
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     # launches: the render path's for its kernels, the training path's for
     # the backward (every path's counts are in the lines below); the
     # closed loop's launches of the forward kernels ride along
@@ -2799,10 +3057,11 @@ def main(argv=None):
             k["xarm_loop_launches"] = xarm_counts[k["name"]]
             k["scan_loop_launches"] = scans["scan_loop"][k["name"]]
             k["real2sim_loop_launches"] = scans["real2sim_loop"][k["name"]]
+            k["shard_loop_launches"] = shard_counts[k["name"]]
     log(train_line)          # repeated here so the end of the log holds them
     log(slice_line)
     for line in (physics_lines + loop_lines + ee_lines + [xarm_line]
-                 + scans["lines"] + demo_lines):
+                 + scans["lines"] + demo_lines + shard_lines):
         log(line)
     line = json.dumps({"kernels": kernels})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:

@@ -21,13 +21,19 @@ Subpackage map (module names follow the JAX package):
              ``render/rasterize_cuda.py``
   wrapper/   GSWorldRenderer and GSWorldWrapper: FK -> slots -> repose ->
              render, batched over envs x cameras, in the env step
-  rollout/   the random-action closed loop
+  rollout/   the random-action closed loop, the motion planners and
+             scripted solutions, demo recording, replay and collection
+  dist/      the env axis split over devices: the mesh, the split and
+             gather of batched state, the cross-env mean, the sharded loop
   train3dgs/ 3DGS training: loss, per-group Adam, densify/prune, trainer
   real2sim/  COLMAP text I/O and SfM, ArUco scale, 3DGS reconstruction,
              the robot's point cloud, Umeyama + ICP, label transfer
+  utils/     env-state checkpoints, profiling ranges
+  tools/     timing and fidelity scripts for the card, and the robot-spec
+             extraction
 
-Still to port: planning and data collection, checkpoints and profiling
-utilities, multi-card splitting (ROADMAP.md queue A).
+The JAX functions left without a counterpart, and why, are listed in
+ROADMAP.md (A11).
 """
 
 __version__ = "0.1.0"

@@ -31,6 +31,11 @@ def quat_conjugate(q):
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
 
 
+def quat_inverse(q, eps: float = 1e-12):
+    """Inverse of wxyz quaternions of any norm: conjugate / |q|^2."""
+    return quat_conjugate(q) / (q * q).sum(-1, keepdim=True).clamp_min(eps)
+
+
 def quat_rotate(q, v):
     """Rotate vectors v (..., 3) by unit quaternions q (..., 4)."""
     qw = q[..., :1]
@@ -117,6 +122,11 @@ def tf_inverse_rigid(T):
     return make_tf(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
+def tf_apply(T, p):
+    """Apply 4x4 transforms (..., 4, 4) to points (..., 3)."""
+    return (T[..., :3, :3] @ p[..., :, None])[..., 0] + T[..., :3, 3]
+
+
 def pose_multiply(p1, q1, p2, q2):
     """Compose (p, q_wxyz) poses: pose1 o pose2."""
     return p1 + quat_rotate(q1, p2), quat_multiply(q1, q2)
@@ -126,6 +136,17 @@ def pose_inverse(p, q):
     """Inverse of a (p, unit q_wxyz) pose."""
     qi = quat_conjugate(q)
     return -quat_rotate(qi, p), qi
+
+
+def extract_rigid_transform(M):
+    """Uniformly scaled rigid 4x4 (..., 4, 4) -> (rigid 4x4, scale, R, t)
+    by the polar decomposition of the 3x3 block: SVD A = U S Vh, scale =
+    mean singular value, R = U Vh, translation as it is."""
+    A = M[..., :3, :3]
+    t = M[..., :3, 3]
+    U, S, Vh = torch.linalg.svd(A)
+    R = U @ Vh
+    return make_tf(R, t), S.mean(-1), R, t
 
 
 def extract_rigid_transform_fast(M):

@@ -78,6 +78,7 @@ using namespace gsw;
 
 constexpr int kBatch = 128;   // entries staged per batch
 constexpr int kRow = 9;       // d mean2d (2), conic (3), colour (3), opacity
+constexpr int kMaxDevices = 64;  // devices one process can address
 
 struct Smem {
   float rec[2][kBatch * kRec];
@@ -252,13 +253,19 @@ extern "C" int gsw_composite_bwd(
     int gx, int tile, int W, int H, float log_alpha_min, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int smem = (int)sizeof(Smem);
-  static bool attr_set = false;
-  if (!attr_set) {
+  // the shared-memory opt-in is a setting of the current device: set it
+  // once per device
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  const cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   const dim3 grid(gsw::blocks_per_frame(T, tile), F);
   composite_bwd_kernel<<<grid, gsw::kThreads, smem, st>>>(

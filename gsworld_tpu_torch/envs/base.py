@@ -171,12 +171,14 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
 
 class _PhysicsGraph:
     """The physics of one env step (targets + control step) captured into
-    a CUDA graph on static input buffers and replayed per step."""
+    a CUDA graph on static input buffers and replayed per step, both with
+    the env's device current (streams belong to the current device)."""
 
     WARMUP = 3
 
     def __init__(self, env: "GsBaseEnv", world: WorldState, prev_target,
                  action):
+        self.device = env.device
         self.fields = [f for f in WORLD_FIELDS
                        if getattr(world, f) is not None]
         self.world = WorldState(**{
@@ -184,23 +186,28 @@ class _PhysicsGraph:
             for f in WORLD_FIELDS})
         self.prev_target = prev_target.clone()
         self.action = action.clone()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                env._physics_eager(self.world, self.prev_target, self.action)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out_world, self.out_target = env._physics_eager(
-                self.world, self.prev_target, self.action)
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    env._physics_eager(self.world, self.prev_target,
+                                       self.action)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # the capture stream is named: torch.cuda.graph's default one
+            # is made once per process, on the device current then
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out_world, self.out_target = env._physics_eager(
+                    self.world, self.prev_target, self.action)
 
     def __call__(self, world: WorldState, prev_target, action):
         for f in self.fields:
             getattr(self.world, f).copy_(getattr(world, f))
         self.prev_target.copy_(prev_target)
         self.action.copy_(action)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         out = WorldState(**{
             f: (getattr(self.out_world, f).clone() if f in self.fields
                 else None) for f in WORLD_FIELDS})

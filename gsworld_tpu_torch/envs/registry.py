@@ -24,7 +24,11 @@ def make(env_id: str, **kwargs):
     cls, defaults = _ENV_REGISTRY[env_id]
     merged = dict(defaults)
     merged.update(kwargs)
-    return cls(**merged)
+    env = cls(**merged)
+    # what the caller asked for, so that the env can be made again with
+    # another size or device (dist/sharded.py makes one per shard)
+    env.make_kwargs = dict(kwargs)
+    return env
 
 
 def registered_envs():

@@ -56,6 +56,9 @@ class SlotLayout:
     def num_slots(self) -> int:
         return len(self.names)
 
+    def slot_of(self, name: str) -> int:
+        return self.names.index(name)
+
 
 def _labels_of(entry: Union[int, Sequence[int]]) -> List[int]:
     return list(entry) if isinstance(entry, (list, tuple)) else [int(entry)]

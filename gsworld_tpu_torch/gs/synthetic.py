@@ -9,7 +9,7 @@ logit-opacities biased positive, near-unit wxyz quats).
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -90,3 +90,35 @@ def make_room_shell(
                      log_scale_mean=log_scale_mean)
     blob["means"] = (pts + center).astype(np.float32)
     return blob
+
+
+def make_tabletop_scene(
+    seed: int = 0,
+    n_background: int = 20000,
+    n_per_link: int = 1500,
+    n_per_object: int = 3000,
+    link_labels: Optional[Dict[str, Union[int, List[int]]]] = None,
+    object_labels: Optional[Dict[str, int]] = None,
+    link_centers: Optional[np.ndarray] = None,
+) -> Dict[str, np.ndarray]:
+    """A whole synthetic tabletop as one splat dict: a background box,
+    one blob per robot link label (stacked up the z axis unless
+    ``link_centers`` (L, 3) places them) and one per object along the
+    table.  Labels follow the constants' scheme (-1 background, links
+    0..L, objects >= 100)."""
+    rng = np.random.default_rng(seed)
+    parts = [make_blob(rng, n_background, [0.3, 0.0, 0.4], [1.5, 1.5, 0.8],
+                       [0.55, 0.5, 0.45], -1, log_scale_mean=-4.5)]
+    for i, label in enumerate((link_labels or {}).values()):
+        c = (link_centers[i] if link_centers is not None
+             else np.array([0.0, 0.0, 0.1 + 0.09 * i], np.float32))
+        for lab in (label if isinstance(label, list) else [label]):
+            parts.append(make_blob(rng, n_per_link, c, 0.05,
+                                   [0.9, 0.9, 0.92], lab))
+    for j, label in enumerate((object_labels or {}).values()):
+        c = np.array([0.55, -0.25 + 0.18 * j, 0.03], np.float32)
+        col = [0.2 + 0.3 * (j % 3 == 0), 0.6 * (j % 3 == 1) + 0.2,
+               0.6 * (j % 3 == 2) + 0.2]
+        parts.append(make_blob(rng, n_per_object, c, [0.035, 0.035, 0.05],
+                               col, label))
+    return concat_splats(parts)

@@ -16,7 +16,11 @@ from typing import NamedTuple
 
 import torch
 
-from gsworld_tpu_torch.core.maths import inverse_sigmoid, matrix_to_quat
+from gsworld_tpu_torch.core.maths import (
+    inverse_sigmoid,
+    matrix_to_quat,
+    quat_compose_preserving_norm,
+)
 from gsworld_tpu_torch.gs.model import GaussianScene
 
 
@@ -37,6 +41,30 @@ class PosedGaussians(NamedTuple):
     log_scales: torch.Tensor       # (..., N, 3)
     quats: torch.Tensor            # (..., N, 4)
     logit_opacities: torch.Tensor  # (..., N)
+
+
+def transform_gaussians(means, log_scales, quats, logit_opacities,
+                        R=None, t=None, scale=None):
+    """The reference's transform of one set of Gaussians (N, ...), scale
+    -> rotate -> translate; ``R`` (..., 3, 3), ``t`` (..., 3) and ``scale``
+    (...) broadcast over leading axes, and each that is None is skipped
+    (``scale=None`` is the links' rigid repose).  -> (means, log_scales,
+    quats, logit_opacities)."""
+    if scale is not None:
+        s = torch.as_tensor(scale, dtype=means.dtype,
+                            device=means.device)[..., None, None]
+        means = means * s
+        # inverse_sigmoid, not log: the reference's rule, copied as it is
+        # (JAX's transform_gaussians does the same)
+        log_scales = inverse_sigmoid(torch.exp(log_scales) * s)
+    if R is not None:
+        means = (R[..., None, :, :] @ means[..., None])[..., 0]
+        quats = quat_compose_preserving_norm(
+            matrix_to_quat(R)[..., None, :], quats)
+    if t is not None:
+        means = means + torch.as_tensor(t, dtype=means.dtype,
+                                        device=means.device)[..., None, :]
+    return means, log_scales, quats, logit_opacities
 
 
 def repose_scene(scene: GaussianScene, slots: SlotTransforms
@@ -84,3 +112,17 @@ def repose_scene(scene: GaussianScene, slots: SlotTransforms
     opac = scene.logit_opacities.expand(s.shape)
     return PosedGaussians(means=means, log_scales=log_scales, quats=quats,
                           logit_opacities=opac)
+
+
+def identity_slots(num_slots: int, apply_scale, batch_shape=(),
+                   device="cuda") -> SlotTransforms:
+    """Identity transform stack (batch_shape + (num_slots,)), the static
+    default; ``apply_scale`` (num_slots,) marks the object slots."""
+    shape = tuple(batch_shape) + (num_slots,)
+    f32 = dict(dtype=torch.float32, device=device)
+    return SlotTransforms(
+        R=torch.eye(3, **f32).expand(shape + (3, 3)),
+        t=torch.zeros(shape + (3,), **f32),
+        scale=torch.ones(shape, **f32),
+        apply_scale=torch.as_tensor(apply_scale, dtype=torch.bool,
+                                    device=device))

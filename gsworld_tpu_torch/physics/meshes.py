@@ -179,6 +179,26 @@ def convex_support_points(verts: np.ndarray, max_points: int = 48) -> np.ndarray
     return farthest_point_sample(verts, max_points)
 
 
+def sample_surface(verts: np.ndarray, faces: np.ndarray, n: int,
+                   seed: int = 0) -> np.ndarray:
+    """``n`` points on a triangle mesh, triangles drawn in proportion to
+    their area, uniform inside each (the reference's per-link surface
+    sampling); the vertices themselves where the mesh has no area."""
+    rng = np.random.default_rng(seed)
+    a, b, c = (verts[faces[:, k]] for k in range(3))
+    areas = 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=1)
+    total = areas.sum()
+    if total <= 0:
+        return verts[rng.integers(0, len(verts), n)]
+    fi = rng.choice(len(faces), size=n, p=areas / total)
+    u = rng.random((n, 1))
+    v = rng.random((n, 1))
+    flip = (u + v) > 1
+    u = np.where(flip, 1 - u, u)
+    v = np.where(flip, 1 - v, v)
+    return a[fi] + u * (b[fi] - a[fi]) + v * (c[fi] - a[fi])
+
+
 def primitive_points(kind: str, size: np.ndarray, max_points: int = 48) -> np.ndarray:
     """Support points for primitive shapes (box/cylinder/sphere/capsule)."""
     if kind == "box":

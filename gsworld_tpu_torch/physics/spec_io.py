@@ -1,4 +1,6 @@
-"""Robot spec loading from the extracted JSON + NPZ data files.
+"""Robot specs as the extracted JSON + NPZ data files: loading, and
+writing (``save_robot_spec``, which gsworld_tpu_torch/tools/
+extract_robot_specs.py drives).
 
 The shipped robots live under ``gsworld_tpu/assets/robots/`` as
 ``<name>.json`` (kinematic tree in URDF document order) and
@@ -85,6 +87,77 @@ class RobotSpec:
     @property
     def link_names(self) -> List[str]:
         return [l.name for l in self.links]
+
+    def link_index(self) -> Dict[str, int]:
+        return {lk.name: i for i, lk in enumerate(self.links)}
+
+    @property
+    def movable_joints(self) -> List[JointSpec]:
+        return [j for j in self.joints if j.jtype != JOINT_FIXED]
+
+    @property
+    def dof(self) -> int:
+        return len(self.movable_joints)
+
+
+def _geom_to_json(g: GeomSpec, npz: Dict[str, np.ndarray], key: str):
+    d = {"kind": g.kind,
+         "origin_pos": np.asarray(g.origin_pos).tolist(),
+         "origin_rot": np.asarray(g.origin_rot).reshape(-1).tolist()}
+    if g.size is not None:
+        d["size"] = np.asarray(g.size).tolist()
+    if g.points is not None:
+        npz[key] = np.asarray(g.points, np.float32)
+        d["points_key"] = key
+    return d
+
+
+def _finite_or_none(x: float):
+    return float(x) if np.isfinite(x) else None
+
+
+def save_robot_spec(spec: RobotSpec, out_dir: str,
+                    surface_points: Optional[Dict[str, np.ndarray]] = None):
+    """Write ``<name>.json`` + ``<name>_geom.npz`` into ``out_dir``, as
+    :func:`load_robot_spec` reads them: links and joints in document
+    order, collision support points and per-link ``surface_points`` in
+    the NPZ.  Mesh geoms must already be reduced to "points" geoms
+    (tools/extract_robot_specs.py)."""
+    npz: Dict[str, np.ndarray] = {}
+    links = [{
+        "name": lk.name, "mass": float(lk.mass),
+        "com_pos": np.asarray(lk.com_pos).tolist(),
+        "com_rot": np.asarray(lk.com_rot).reshape(-1).tolist(),
+        "inertia": np.asarray(lk.inertia).reshape(-1).tolist(),
+        "collisions": [_geom_to_json(g, npz, f"col/{lk.name}/{i}")
+                       for i, g in enumerate(lk.collisions)],
+    } for lk in spec.links]
+    joints = []
+    for j in spec.joints:
+        jj = {
+            "name": j.name, "type": int(j.jtype),
+            "parent": j.parent, "child": j.child,
+            "origin_pos": np.asarray(j.origin_pos).tolist(),
+            "origin_rot": np.asarray(j.origin_rot).reshape(-1).tolist(),
+            "axis": np.asarray(j.axis).tolist(),
+            "limit": [float(j.limit_lower), float(j.limit_upper)],
+            "effort": _finite_or_none(j.effort),
+            "velocity": _finite_or_none(j.velocity),
+            "damping": float(j.damping), "friction": float(j.friction),
+        }
+        if j.mimic is not None:
+            jj["mimic"] = {"joint": j.mimic.joint,
+                           "multiplier": j.mimic.multiplier,
+                           "offset": j.mimic.offset}
+        joints.append(jj)
+    for name, pts in (surface_points or {}).items():
+        npz[f"surf/{name}"] = np.asarray(pts, np.float32)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{spec.name}.json"), "w") as f:
+        json.dump({"name": spec.name, "links": links, "joints": joints}, f,
+                  indent=1)
+    np.savez_compressed(os.path.join(out_dir, f"{spec.name}_geom.npz"),
+                        **npz)
 
 
 def _geom_from_json(d: dict, npz) -> GeomSpec:

@@ -125,3 +125,11 @@ def render(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0, shN,
     return dict(rgb=img.reshape(lead + hw + (3,)), T=T_img.reshape(lead + hw),
                 seg=seg.reshape(lead + hw) if seg is not None else None,
                 overflow=bins.overflow.reshape(lead))
+
+
+def render_uint8(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0,
+                 shN):
+    """Render to uint8 (..., H, W, 3): ``clip(rgb * 255, 0, 255)``
+    truncated, the wrapper's image contract."""
+    rgb = render(g, cam, cfg, sh0, shN)["rgb"]
+    return torch.clamp(rgb * 255.0, 0, 255).to(torch.uint8)

@@ -281,16 +281,18 @@ def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
     if rect.data_ptr() % 16 or mean2d.data_ptr() % 8:
         raise ValueError("rect and mean2d must start on 16 and 8 bytes")
     lib = lib or build_kernels()
-    keys = torch.empty((F, E), dtype=torch.int64, device=dev)
-    gid = torch.empty((F, E), dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        keys = torch.empty((F, E), dtype=torch.int64, device=dev)
+        gid = torch.empty((F, E), dtype=i32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
     args = (ends.data_ptr(), rect.data_ptr(), mean2d.data_ptr(),
             conic.data_ptr(), opacity.data_ptr(), depth.data_ptr(),
             keys.data_ptr(), gid.data_ptr(), F, N, E, gx, T, tile,
-            int(cull_alpha), LOG_ALPHA_MIN,
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(cull_alpha), LOG_ALPHA_MIN, stream)
 
     def launch():
-        _check(lib, lib.gsw_emit_entries(*args), "emit_entries")
+        with torch.cuda.device(dev):     # the stream's device is current
+            _check(lib, lib.gsw_emit_entries(*args), "emit_entries")
         launch_counts["emit_entries"] += 1
 
     return launch, keys, gid
@@ -586,43 +588,44 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
                 pack_records_reference(starts, gaussian, mean2d, conic,
                                        opacity, color, semantics),)
     dev = _cuda_device(mean2d, "composite_tiles")
-    F, N = opacity.shape
-    T = starts.shape[1] - 1
-    E = gaussian.shape[1]
-    gx = -(-width // tile)
-    if T != gx * (-(-height // tile)):
-        raise ValueError(f"starts has {T} tiles, expected "
-                         f"{gx * (-(-height // tile))}")
-    i32, f32 = torch.int32, torch.float32
-    for name, t, dt, shp in (
-            ("starts", starts, i32, (F, T + 1)),
-            ("gaussian", gaussian, i32, (F, E)),
-            ("mean2d", mean2d, f32, (F, N, 2)),
-            ("conic", conic, f32, (F, N, 3)),
-            ("opacity", opacity, f32, (F, N)),
-            ("color", color, f32, (F, N, 3))):
-        _require(t, name, dt, shp, dev)
-    if semantics is not None:
-        _require(semantics, "semantics", i32, (N,), dev)
-    lib = build_kernels()
-    rec = torch.empty((F, E, RECORD_FIELDS), dtype=f32, device=dev)
-    img = torch.empty((F, height, width, 3), dtype=f32, device=dev)
-    T_img = torch.empty((F, height, width), dtype=f32, device=dev)
-    seg = (torch.empty((F, height, width), dtype=i32, device=dev)
-           if semantics is not None else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gsw_composite_tiles(
-        starts.data_ptr(), gaussian.data_ptr(), mean2d.data_ptr(),
-        conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
-        semantics.data_ptr() if semantics is not None else None,
-        rec.data_ptr(), img.data_ptr(), T_img.data_ptr(),
-        seg.data_ptr() if seg is not None else None,
-        F, N, E, T, gx, tile, width, height,
-        float(bg[0]), float(bg[1]), float(bg[2]), COLOR_MAX, LOG_ALPHA_MIN,
-        stream)
-    _check(lib, rc, "composite_tiles")
-    launch_counts["composite_tiles"] += 1
-    return img, T_img, seg, rec
+    with torch.cuda.device(dev):     # the stream's device is current
+        F, N = opacity.shape
+        T = starts.shape[1] - 1
+        E = gaussian.shape[1]
+        gx = -(-width // tile)
+        if T != gx * (-(-height // tile)):
+            raise ValueError(f"starts has {T} tiles, expected "
+                             f"{gx * (-(-height // tile))}")
+        i32, f32 = torch.int32, torch.float32
+        for name, t, dt, shp in (
+                ("starts", starts, i32, (F, T + 1)),
+                ("gaussian", gaussian, i32, (F, E)),
+                ("mean2d", mean2d, f32, (F, N, 2)),
+                ("conic", conic, f32, (F, N, 3)),
+                ("opacity", opacity, f32, (F, N)),
+                ("color", color, f32, (F, N, 3))):
+            _require(t, name, dt, shp, dev)
+        if semantics is not None:
+            _require(semantics, "semantics", i32, (N,), dev)
+        lib = build_kernels()
+        rec = torch.empty((F, E, RECORD_FIELDS), dtype=f32, device=dev)
+        img = torch.empty((F, height, width, 3), dtype=f32, device=dev)
+        T_img = torch.empty((F, height, width), dtype=f32, device=dev)
+        seg = (torch.empty((F, height, width), dtype=i32, device=dev)
+               if semantics is not None else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gsw_composite_tiles(
+            starts.data_ptr(), gaussian.data_ptr(), mean2d.data_ptr(),
+            conic.data_ptr(), opacity.data_ptr(), color.data_ptr(),
+            semantics.data_ptr() if semantics is not None else None,
+            rec.data_ptr(), img.data_ptr(), T_img.data_ptr(),
+            seg.data_ptr() if seg is not None else None,
+            F, N, E, T, gx, tile, width, height,
+            float(bg[0]), float(bg[1]), float(bg[2]), COLOR_MAX, LOG_ALPHA_MIN,
+            stream)
+        _check(lib, rc, "composite_tiles")
+        launch_counts["composite_tiles"] += 1
+        return img, T_img, seg, rec
 
 
 # --------------------------------------------------------------------- #
@@ -734,37 +737,39 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
             starts, gaussian, mean2d, conic, opacity, color, img, T_img,
             img_ct, T_ct, width=width, height=height, tile=tile)
     dev = _cuda_device(mean2d, "composite_bwd")
-    F, N = opacity.shape
-    T = starts.shape[1] - 1
-    E = gaussian.shape[1]
-    gx = -(-width // tile)
-    if T != gx * (-(-height // tile)):
-        raise ValueError(f"starts has {T} tiles, expected "
-                         f"{gx * (-(-height // tile))}")
-    i32, f32 = torch.int32, torch.float32
-    for name, t, dt, shp in (
-            ("starts", starts, i32, (F, T + 1)),
-            ("gaussian", gaussian, i32, (F, E)),
-            ("mean2d", mean2d, f32, (F, N, 2)),
-            ("conic", conic, f32, (F, N, 3)),
-            ("opacity", opacity, f32, (F, N)),
-            ("color", color, f32, (F, N, 3)),
-            ("img", img, f32, (F, height, width, 3)),
-            ("T_img", T_img, f32, (F, height, width)),
-            ("img_ct", img_ct, f32, (F, height, width, 3)),
-            ("T_ct", T_ct, f32, (F, height, width))):
-        _require(t, name, dt, shp, dev)
-    _require(records, "records", f32, (F, E, RECORD_FIELDS), dev)
-    lib = build_kernels()
-    out = torch.zeros((F, E, BWD_FIELDS), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gsw_composite_bwd(
-        starts.data_ptr(), records.data_ptr(), img.data_ptr(),
-        T_img.data_ptr(), img_ct.data_ptr(), T_ct.data_ptr(), out.data_ptr(),
-        F, E, T, gx, tile, width, height, LOG_ALPHA_MIN, stream)
-    _check(lib, rc, "composite_bwd")
-    launch_counts["composite_bwd"] += 1
-    return out
+    with torch.cuda.device(dev):     # the stream's device is current
+        F, N = opacity.shape
+        T = starts.shape[1] - 1
+        E = gaussian.shape[1]
+        gx = -(-width // tile)
+        if T != gx * (-(-height // tile)):
+            raise ValueError(f"starts has {T} tiles, expected "
+                             f"{gx * (-(-height // tile))}")
+        i32, f32 = torch.int32, torch.float32
+        for name, t, dt, shp in (
+                ("starts", starts, i32, (F, T + 1)),
+                ("gaussian", gaussian, i32, (F, E)),
+                ("mean2d", mean2d, f32, (F, N, 2)),
+                ("conic", conic, f32, (F, N, 3)),
+                ("opacity", opacity, f32, (F, N)),
+                ("color", color, f32, (F, N, 3)),
+                ("img", img, f32, (F, height, width, 3)),
+                ("T_img", T_img, f32, (F, height, width)),
+                ("img_ct", img_ct, f32, (F, height, width, 3)),
+                ("T_ct", T_ct, f32, (F, height, width))):
+            _require(t, name, dt, shp, dev)
+        _require(records, "records", f32, (F, E, RECORD_FIELDS), dev)
+        lib = build_kernels()
+        out = torch.zeros((F, E, BWD_FIELDS), dtype=f32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gsw_composite_bwd(
+            starts.data_ptr(), records.data_ptr(), img.data_ptr(),
+            T_img.data_ptr(), img_ct.data_ptr(), T_ct.data_ptr(),
+            out.data_ptr(), F, E, T, gx, tile, width, height, LOG_ALPHA_MIN,
+            stream)
+        _check(lib, rc, "composite_bwd")
+        launch_counts["composite_bwd"] += 1
+        return out
 
 
 def scatter_entry_rows(rows, gaussian, N: int):

@@ -75,26 +75,30 @@ def quat_slerp_screw(p0, q0, p1, q1, n: int):
 
 class _IKGraph:
     """``solve(*inputs)`` captured into a CUDA graph on static copies of
-    ``inputs`` and replayed per call (as envs/base.py's physics graph)."""
+    ``inputs`` and replayed per call, with the inputs' device current (as
+    envs/base.py's physics graph)."""
 
     WARMUP = 3
 
     def __init__(self, solve, *inputs):
         self.inputs = [x.clone() for x in inputs]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                solve(*self.inputs)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = solve(*self.inputs)
+        self.device = inputs[0].device
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    solve(*self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):  # on the device
+                self.outputs = solve(*self.inputs)
 
     def __call__(self, *inputs):
         for buf, x in zip(self.inputs, inputs):
             buf.copy_(x)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         return tuple(o.clone() for o in self.outputs)
 
 

@@ -63,6 +63,12 @@ def _host_read(obs, env) -> np.ndarray:
     return obs["sensor_data"][env.cameras[0].name]["rgb"].cpu().numpy()
 
 
+def _synchronize(devices):
+    for dev in set(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
                 use_scan: bool = False, shard: bool = False,
                 on_timed_start=None):
@@ -73,31 +79,35 @@ def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
     replays its CUDA graph when the env was built with ``graph=True``.
     The clock stops after a synchronize and a host read of the last frame.
     ``use_scan`` asks for that graph path and raises where the env was
-    built without it; ``shard`` (envs split across cards) is not ported.
-    ``on_timed_start()`` is called after the reset and the warm-up steps,
-    just before the clock starts (a caller's counters start there).
+    built without it.  ``shard`` splits the env axis over every visible
+    card (``dist.mesh.env_mesh()``; over the CPU for an env built there):
+    a ``dist.sharded.ShardedLoop`` of the wrapper, whose env i steps as
+    env i of the unsharded loop.  ``on_timed_start()`` is called after the
+    reset and the warm-up steps, just before the clock starts (a caller's
+    counters start there).
     """
     env = wrapper.env
-    if shard:
-        raise NotImplementedError("sharding the env axis across cards is "
-                                  "not ported yet")
     if use_scan and env.device.type == "cuda" and not env.graph:
         raise ValueError("use_scan asks for the captured physics step: "
                          "build the env with graph=True")
-    obs, _ = wrapper.reset(seed=seed)
+    loop, devices = wrapper, [env.device]
+    if shard:
+        from gsworld_tpu_torch.dist.mesh import env_mesh
+        from gsworld_tpu_torch.dist.sharded import ShardedLoop
+        mesh = env_mesh(None if env.device.type == "cuda" else [env.device])
+        loop, devices = ShardedLoop(wrapper, mesh), list(mesh)
+    obs, _ = loop.reset(seed=seed)
     gen = torch.Generator().manual_seed(seed)    # same actions on any device
     for _ in range(warmup):
-        obs, *_ = wrapper.step(env.action_space_sample(gen))
+        obs, *_ = loop.step(env.action_space_sample(gen))
     _host_read(obs, env)
-    if env.device.type == "cuda":
-        torch.cuda.synchronize()
+    _synchronize(devices)
     if on_timed_start is not None:
         on_timed_start()
     t0 = time.perf_counter()
     for _ in range(ep_len):
-        obs, *_ = wrapper.step(env.action_space_sample(gen))
-    if env.device.type == "cuda":
-        torch.cuda.synchronize()
+        obs, *_ = loop.step(env.action_space_sample(gen))
+    _synchronize(devices)
     frames = _host_read(obs, env)
     dt = time.perf_counter() - t0
     return ep_len * env.num_envs / dt, dt / ep_len, frames

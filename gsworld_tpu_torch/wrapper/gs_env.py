@@ -215,12 +215,21 @@ class GSWorldRenderer:
         return type(posed)(*(x[:, None] for x in posed)), gs_cams
 
     @torch.no_grad()
-    def render(self, poses: EnvPoses, cameras=None) -> dict:
+    def render(self, poses: EnvPoses, cameras=None,
+               raster_config: Optional[RasterConfig] = None) -> dict:
         """Render every env of ``poses`` through every sensor camera, or
-        through ``cameras`` (then without segmentation)."""
+        through ``cameras`` (then without segmentation).
+        ``raster_config`` replaces the renderer's for this render (another
+        D or E at the sensor cameras' size: tools/render_parity.py)."""
         env = self.env
         cams = env.cameras if cameras is None else cameras
         cfg = self._config_for(cameras)
+        if raster_config is not None:
+            if (raster_config.width, raster_config.height) != (
+                    cfg.width, cfg.height):
+                raise ValueError("raster_config size differs from the "
+                                 "cameras'")
+            cfg = raster_config
         posed_bc, gs_cams = self.frames(poses, cameras)
         want_seg = cameras is None and "segmentation" in env.obs_mode
         tint = self.color_tint(poses.obj_color)
@@ -274,10 +283,13 @@ class GSWorldWrapper:
         if device != env.device:
             raise ValueError(f"the env steps on {env.device}, the wrapper "
                              f"was asked to render on {device}")
+        # the scene and raster arguments, for a wrapper of another env
+        # (dist/sharded.py wraps one per shard)
+        self.render_kwargs = dict(
+            raster_config=raster_config, synthetic_sizes=synthetic_sizes,
+            asset_dir=asset_dir, cfg_dir=cfg_dir)
         self.renderer = GSWorldRenderer(
-            env, scene_gs_cfg_name, raster_config=raster_config,
-            synthetic_sizes=synthetic_sizes, asset_dir=asset_dir,
-            cfg_dir=cfg_dir, device=device)
+            env, scene_gs_cfg_name, device=device, **self.render_kwargs)
         self.is_real_scene = self.renderer.is_real_scene
         self.raster_config = self.renderer.raster_config
 

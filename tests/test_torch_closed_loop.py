@@ -134,8 +134,10 @@ def test_wrapper_surface(loops):
     assert info == {} and "sensor_data" in obs and "agent" in obs
     fps, spf, last = rollout_fps(tw, 1, seed=0, warmup=0)
     assert fps > 0 and last.shape == (B, H, W, 3) and last.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="shard"):
-        rollout_fps(tw, 1, shard=True)
+    # split over the CPU (the env's device): env i steps as env i
+    fps_s, _, last_s = rollout_fps(tw, 1, seed=0, warmup=0, shard=True)
+    assert fps_s > 0
+    np.testing.assert_array_equal(last_s, last)
     with pytest.raises(ValueError, match="renders on|render on"):
         GSWorldWrapper(tenv, "fr3_align", device="meta")
 
