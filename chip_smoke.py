@@ -56,7 +56,18 @@ Phases (each prints a line; any failure exits non-zero before a result):
               (physics step, then the GS render of the new state) at 4
               envs x 2 cameras 640x480 for 30 steps, at 1 env, and at 64
               envs for 3 steps; split into physics and render by CUDA
-              events; launch counts; the frames follow a moved can
+              events; launch counts; the frames follow a moved can.  Then
+              the scanned loop on the same wrappers (rollout_fps(use_scan=
+              True): the wrapper's whole step captured as one CUDA graph,
+              one replay per step, best of 3 reps): ms per step beside the
+              eager loop's, peak memory, the launches of the capture, and
+              by the profiler over 3 scanned steps exactly one emit and one
+              compositor kernel per replay and no copy to the host; at 4
+              envs 10 scanned steps against 10 eager steps from one
+              reset(seed) with the same actions, every env's and camera's
+              rgb and segmentation, every WorldState field, prev_target and
+              the task state bit for bit, and emit and compositor vs plain
+              on a scanned step's frames
   6d. more    AlignFr3Env-v1 at 4 envs in pd_ee_delta_pos and
               pd_ee_delta_pose (IK inside the captured step): eager and
               graph steps, graph vs eager bit for bit (WorldState and
@@ -65,9 +76,11 @@ Phases (each prints a line; any failure exits non-zero before a result):
               CPU, flags and task state; AlignXArmEnv-v1 with domain
               randomization through rollout.random_actions at 4 envs x 2
               cameras 640x480 (the xarm6_align scene at the bench sizes),
-              one emit and one compositor launch per step; both kernels
-              vs plain on its 8 tinted frames; the tint moves only pixels
-              the objects reach
+              one emit and one compositor launch per step, and its
+              scanned loop as 6c's (tint and camera noise inside the
+              graph; scanned vs eager bit for bit); both kernels vs plain
+              on the 8 tinted frames of a scanned step; the tint moves
+              only pixels the objects reach
   7a. scans   the fr3_align synthetic scene written as the PLYs (and the
               labels .npy) that configs/fr3_align.json names, under a
               temporary directory; merge_scene_from_config equals the
@@ -119,7 +132,10 @@ Phases (each prints a line; any failure exits non-zero before a result):
               10 steps, mean_across_envs of the reward within 1e-6 of the
               unsharded mean, ms per step of both; init_distributed (NCCL,
               world size 1, a file store under OUT_DIR) and its all_reduce
-              mean against the local mean
+              mean against the local mean.  The scanned split:
+              rollout_fps(shard=True, use_scan=True), and on each split
+              above ShardedLoop.scan_steps against the unsharded
+              scan_steps over 10 steps (the same gates), ms per step
   9b. fidelity tools/render_parity.py on phase 4's 10 render states: the
               bench raster against the render with D = the tile count and
               E doubled from 2^19 until nothing drops, per camera uint8
@@ -187,6 +203,8 @@ SHARD_STATE_TOL = 1e-5  # every WorldState field after SHARD_STEPS steps
 SHARD_MEAN_TOL = 1e-6   # mean_across_envs against the unsharded mean
 SEG_AGREE_MIN = 0.999
 LOOP_STEPS_64 = 3
+SCAN_CHECK_STEPS = 10   # scanned vs eager, bit for bit (6c, 6d, 9a)
+SCAN_PROFILE_STEPS = 3  # scanned steps in the profiler's window
 EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose")
 OTHER_TASKS = ("PnpBoxFr3Env-v1", "PourMustardFr3Env-v1", "StackFr3Env-v1",
                "AlignXArmEnv-v1", "BananaRotationXArmEnv-v1",
@@ -1471,28 +1489,38 @@ def loop_steps(wrapper, n, seed=SEED):
 
 
 def phase_closed_loop():
-    """6c: the closed loop through rollout.random_actions."""
+    """6c: the closed loop through rollout.random_actions, eager and
+    scanned (one CUDA graph replay of the whole step per step)."""
     import torch
-    lines, counts4 = [], None
+    lines, counts4, scan4 = [], None, None
     for B, steps in ((NUM_ENVS, LOOP_STEPS), (1, LOOP_STEPS),
                      (64, LOOP_STEPS_64)):
         t0 = time.perf_counter()
         env, wrapper = bench_build("AlignFr3Env-v1", B, "fr3_align")
-        counts, text, _ = timed_loop(wrapper, f"closed loop B={B}", steps)
+        counts, text, _, eager_ms = timed_loop(wrapper,
+                                               f"closed loop B={B}", steps)
+        scan_ms, scan_text, scan_counts = scanned_loop(
+            wrapper, f"scanned loop B={B}", steps)
         cam = env.cameras[0]
         line = (f"phase 6c closed loop, {B} envs x {len(env.cameras)} cams "
-                f"{cam.width}x{cam.height}, {steps} steps: {text} (built, "
-                f"warmed and run in {time.perf_counter() - t0:.1f} s)")
+                f"{cam.width}x{cam.height}, {steps} steps: eager {text}; "
+                f"{scan_text}; scanned / eager ms per step "
+                f"{scan_ms / eager_ms:.3f} (built, warmed and run in "
+                f"{time.perf_counter() - t0:.1f} s)")
         log(line)
         lines.append(line)
         if B == NUM_ENVS:
-            counts4 = counts
+            counts4, scan4 = counts, scan_counts
             check_frames_follow_state(wrapper)
             phase_profile("6c", "closed_loop", lambda i: wrapper.step(
                 env.action_space_sample()))
+            line = (f"phase 6c scanned loop, {B} envs: "
+                    + scan_vs_eager(wrapper, "6c scanned loop"))
+            log(line)
+            lines.append(line)
         del env, wrapper
         torch.cuda.empty_cache()
-    return counts4, lines
+    return counts4, scan4, lines
 
 
 def check_frames_follow_state(wrapper):
@@ -1683,17 +1711,22 @@ def phase_xarm_loop():
     t0 = time.perf_counter()
     env, wrapper = bench_build("AlignXArmEnv-v1", NUM_ENVS, "xarm6_align",
                                domain_randomization=True)
-    counts, text, _ = timed_loop(wrapper, "xArm loop")
+    counts, text, _, _ = timed_loop(wrapper, "xArm loop")
     if set(env.state.task) != {"obj_color", "cam_pose_noise"}:
         raise AssertionError(f"xArm loop: task state {set(env.state.task)}")
+    _, scan_text, _ = scanned_loop(wrapper, "xArm scanned loop", LOOP_STEPS)
     cam = env.cameras[0]
     line = (f"phase 6d xArm closed loop, AlignXArmEnv-v1 with domain "
             f"randomization, {NUM_ENVS} envs x {len(env.cameras)} cams "
             f"{cam.width}x{cam.height}, {wrapper.renderer.scene.num_gaussians}"
-            f" Gaussians, {LOOP_STEPS} steps: {text} (built, warmed and run "
-            f"in {time.perf_counter() - t0:.1f} s)")
+            f" Gaussians, {LOOP_STEPS} steps: eager {text}; {scan_text} "
+            f"(built, warmed and run in {time.perf_counter() - t0:.1f} s)")
     log(line)
-    return counts, line, wrapper
+    scan_line = ("phase 6d xArm scanned loop (tint and camera noise inside "
+                 "the graph): " + scan_vs_eager(wrapper, "6d xArm scanned "
+                                                "loop", tint=True))
+    log(scan_line)
+    return counts, [line, scan_line], wrapper
 
 
 def check_tint(wrapper):
@@ -1803,7 +1836,7 @@ def timed_loop(wrapper, what, steps=None):
     one emit and one compositor launch per step, frames of the cameras'
     shape, a finite state; then up to 10 further steps split by CUDA
     events, whose observation is checked -> (launch counts, text for the
-    phase's line, the last observation)."""
+    phase's line, the last observation, ms per step)."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.rollout.random_actions import rollout_fps
@@ -1821,6 +1854,7 @@ def timed_loop(wrapper, what, steps=None):
                                    on_timed_start=timed_start)
     counts = dict(rc.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     for name in ("emit_entries", "composite_tiles"):
         if counts[name] != steps:
             raise AssertionError(f"{what}: kernel {name} launched "
@@ -1840,9 +1874,166 @@ def timed_loop(wrapper, what, steps=None):
             f"events physics + observation {phys_ms:.3f} ms, render "
             f"{rend_ms:.3f} ms (medians of {n} further steps); overflow "
             f"{overflow} entries in the last step, peak memory "
-            f"{peak / 2**30:.3f} GiB, launches {counts} in the {steps} "
-            f"timed steps")
-    return counts, text, obs
+            f"{peak / 2**30:.3f} GiB allocated ({reserved / 2**30:.3f} "
+            f"reserved), launches {counts} in the {steps} timed steps")
+    return counts, text, obs, 1000.0 * spf
+
+
+def scan_kernels(wrapper, what):
+    """torch.profiler over SCAN_PROFILE_STEPS scanned steps
+    (``scan_steps``: one graph replay per step): exactly one emit and one
+    compositor kernel per replay by the kernels' names, and no copy from
+    the device to the host before the last step's end -> (text, emit
+    kernels per replay).  The launch counters do not see replays."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gsworld_tpu_torch.rollout.random_actions import scan_steps
+    env, n = wrapper.env, SCAN_PROFILE_STEPS
+    acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 13),
+                                   steps=n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frames = scan_steps(wrapper, acts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("gsw.")}
+
+    def count(word):
+        return sum(c for k, (c, _) in kern.items() if word in k)
+
+    emit, comp, d2h = count("emit_kernel"), count("composite_kernel"), \
+        count("DtoH")
+    if emit != n or comp != n or d2h:
+        raise AssertionError(f"{what}: {n} scanned steps ran {emit} emit and "
+                             f"{comp} compositor kernels, {d2h} copies to "
+                             f"the host")
+    if frames.shape[0] != n:
+        raise AssertionError(f"{what}: scanned frames {tuple(frames.shape)}")
+    busy = sum(t for _, t in kern.values()) / 1e3            # ms
+    text = (f"profiler over {n} scanned steps: {emit // n} emit and "
+            f"{comp // n} compositor kernel per replay (kernel names), "
+            f"{sum(c for c, _ in kern.values()) // n} kernels per step, no "
+            f"copy to the host, kernels {busy / n:.3f} ms per step in "
+            f"{1e3 * wall / n:.3f} ms (profiler on; device busy "
+            f"{100 * busy / (1e3 * wall):.1f}%)")
+    return text, emit // n
+
+
+def scanned_loop(wrapper, what, steps):
+    """rollout_fps(use_scan=True) over ``steps`` steps (the capture in its
+    warm-up): the frames' contract; the launch counters before the timed
+    reps (the reset's render, the capture's warm-up steps and the capture
+    itself) and in them (none: a replay moves no counter); peak memory of
+    the timed reps; the profiler's kernels per replay -> (ms per step,
+    text, launches before the timed reps and kernels per replay)."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.rollout.random_actions import (SCAN_REPS,
+                                                          rollout_fps)
+    from gsworld_tpu_torch.wrapper.gs_env import _StepGraph
+    env = wrapper.env
+    cam = env.cameras[0]
+    want = 1 + (0 if wrapper._step_graph is not None
+                else _StepGraph.WARMUP + 1)
+    before = {}
+
+    def timed_start():
+        before.update(rc.launch_counts)
+        rc.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+
+    rc.reset_launch_counts()
+    fps, spf, frames = rollout_fps(wrapper, steps, seed=SEED, warmup=2,
+                                   use_scan=True, on_timed_start=timed_start)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    if frames.shape != (steps, cam.height, cam.width, 3) \
+            or frames.dtype.name != "uint8" or frames.std() < 5.0:
+        raise AssertionError(f"{what}: scanned frames {frames.shape} "
+                             f"{frames.dtype}")
+    for name in ("emit_entries", "composite_tiles"):
+        if before[name] != want or rc.launch_counts[name]:
+            raise AssertionError(
+                f"{what}: {name} launched {before[name]} times before the "
+                f"timed reps (want {want}: the reset's render and the "
+                f"capture) and {rc.launch_counts[name]} in them (want 0)")
+    check_finite(env.state.world, what)
+    prof_text, per_replay = scan_kernels(wrapper, what)
+    text = (f"scanned (rollout_fps(use_scan=True): one CUDA graph replay "
+            f"per step, best of {SCAN_REPS} reps of {steps}) "
+            f"{1000.0 * spf:.3f} ms per step, {fps:.2f} env-steps/s, peak "
+            f"memory {peak / 2**30:.3f} GiB allocated "
+            f"({reserved / 2**30:.3f} reserved), frames {frames.shape}, "
+            f"launch counters {want} before the timed reps (reset, "
+            f"capture) and 0 in them; {prof_text}")
+    return 1000.0 * spf, text, dict(before, per_replay=per_replay)
+
+
+def scan_vs_eager(wrapper, what, tint=False):
+    """SCAN_CHECK_STEPS replays of the wrapper's step graph against as
+    many eager ``wrapper.step`` from the same reset(SEED) with the same
+    actions: every env's and camera's rgb and segmentation at every step,
+    every WorldState field, prev_target and the task state bit for bit;
+    ``scan_steps``'s frames are the eager env 0's first camera; then emit
+    and the compositor against their plain versions on the frames of the
+    state after one scanned step (tinted by its task's colours with
+    ``tint``) -> text."""
+    import torch
+    from gsworld_tpu_torch.rollout.random_actions import scan_steps
+    from gsworld_tpu_torch.wrapper.gs_env import _clone_state, world_poses
+    env, n = wrapper.env, SCAN_CHECK_STEPS
+    acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 17),
+                                   steps=n)
+    wrapper.reset(seed=SEED)
+    s0 = _clone_state(env.state)
+    eager = []
+    for a in acts:
+        obs, *_ = wrapper.step(a)
+        eager.append(obs["sensor_data"])
+    s_eager = env.state
+    g = wrapper.step_graph(acts[0])
+    g.load(s0)
+    bad = []
+    for i, a in enumerate(acts):
+        g.replay(a)
+        for c, d in g.obs["sensor_data"].items():
+            for k, v in d.items():
+                if not torch.equal(v, eager[i][c][k]):
+                    bad.append(f"step {i + 1} {c} {k}")
+    s_scan = g.state_clone()
+    bad += [f"world.{f}" for f, (eq, _) in world_diff(
+        s_scan.world, s_eager.world).items() if not eq]
+    if not torch.equal(s_scan.prev_target, s_eager.prev_target):
+        bad.append("prev_target")
+    bad += [f"task.{k}" for k in s_eager.task
+            if not torch.equal(s_scan.task[k], s_eager.task[k])]
+    cam = env.cameras[0].name
+    frames = scan_steps(wrapper, acts, state=_clone_state(s0))
+    if not torch.equal(frames, torch.stack([e[cam]["rgb"][0]
+                                            for e in eager])):
+        bad.append("scan_steps frames")
+    if bad:
+        raise AssertionError(f"{what}: scanned and eager differ: {bad[:8]} "
+                             f"({len(bad)} fields)")
+    g.load(s0)
+    g.replay(acts[0])
+    st = g.state_clone()
+    poses = world_poses(st.world, st.task)
+    phase_kernels(wrapper.renderer, poses, phase="6c" if not tint else "6d",
+                  tint=(wrapper.renderer.color_tint(poses.obj_color)
+                        if tint else None), timed=False)
+    return (f"scanned vs eager {n} steps from reset({SEED}), the same "
+            f"actions: every env's and camera's rgb and segmentation at "
+            f"every step, every WorldState field, prev_target and the task "
+            f"state bit for bit, scan_steps' frames the eager env 0's; emit "
+            f"and compositor vs plain on a scanned step's frames within "
+            f"phase 3's gates (lines above)")
 
 
 def phase_scan_loop(tmp, device="cuda"):
@@ -1912,7 +2103,7 @@ def phase_scan_loop(tmp, device="cuda"):
     del syn_env, syn, obs_s
     torch.cuda.empty_cache()
 
-    counts, text, _ = timed_loop(wrapper, "7a scan loop")
+    counts, text, _, _ = timed_loop(wrapper, "7a scan loop")
     cam = env.cameras[0]
     st = env.state
     phase_kernels(wrapper.renderer, world_poses(st.world, st.task),
@@ -2163,7 +2354,7 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
                                device, cfg_dir=cfg_dir)
     if not wrapper.is_real_scene:
         raise AssertionError("7b: the wrapper did not merge the scan")
-    loop_counts, text, obs = timed_loop(wrapper, "7b scan loop")
+    loop_counts, text, obs, _ = timed_loop(wrapper, "7b scan loop")
     r = wrapper.renderer
     st = env.state
     with torch.no_grad():
@@ -2843,6 +3034,78 @@ def shard_vs_unsharded(env, wrapper, mesh):
     return line, r_s
 
 
+def shard_scan_vs_unsharded(env, wrapper, mesh):
+    """9a's gates on the scanned loop: the split's scan over ``mesh``
+    (``ShardedLoop.scan_steps``: per step one action copy and one graph
+    replay per shard) against the unsharded scan from the same
+    reset(SEED) and SHARD_STEPS actions: env 0's frames at every step and
+    every env's and camera's frames at the last step (max |diff| <= 1
+    count, segmentation >= SEG_AGREE_MIN equal), every WorldState field
+    within SHARD_STATE_TOL, mean_across_envs of the last reward within
+    SHARD_MEAN_TOL of the unsharded mean; ms per scanned step of both
+    (the first, capturing scan untimed) -> the phase's line."""
+    import torch
+    from gsworld_tpu_torch.dist import mesh as M
+    from gsworld_tpu_torch.dist.sharded import ShardedLoop
+    from gsworld_tpu_torch.rollout.random_actions import scan_steps
+    t0 = time.perf_counter()
+    n = len(mesh)
+    loop = ShardedLoop(wrapper, mesh)
+    acts = env.action_space_sample(torch.Generator().manual_seed(SEED),
+                                   steps=SHARD_STEPS)
+    wrapper.reset(seed=SEED)
+    loop.reset(seed=SEED)
+    scan_steps(wrapper, acts[:1])            # the captures
+    loop.scan_steps(acts[:1])
+    wrapper.reset(seed=SEED)
+    loop.reset(seed=SEED)
+    t_u, f_u = step_ms(lambda: scan_steps(wrapper, acts))
+    t_s, f_s = step_ms(lambda: loop.scan_steps(acts))
+    env0_err = int((f_u.int() - f_s.to(f_u.device).int()).abs().max())
+    graphs = [sh._step_graph for sh in loop.shards]
+    sd_u = wrapper._step_graph.obs["sensor_data"]
+    sd_s = M.gather_env_axis([g.obs["sensor_data"] for g in graphs],
+                             mesh[0])
+    rgb_err, seg_agree = env0_err, []
+    for c in sd_u:
+        su, ss = sd_u[c], sd_s[c]
+        rgb_err = max(rgb_err, int((su["rgb"].int() - ss["rgb"].int())
+                                   .abs().max()))
+        seg_agree.append(float((su["segmentation"] == ss["segmentation"])
+                               .float().mean()))
+    if rgb_err > 1 or min(seg_agree) < SEG_AGREE_MIN:
+        raise AssertionError(f"9a scanned: frames differ by {rgb_err} "
+                             f"counts, segmentation {seg_agree}")
+    wd = world_diff(loop.state.world, env.state.world)
+    bad = {f: d for f, (eq, d) in wd.items() if d > SHARD_STATE_TOL}
+    if bad:
+        raise AssertionError(f"9a scanned: WorldState after {SHARD_STEPS} "
+                             f"steps differs beyond {SHARD_STATE_TOL}: {bad}")
+    mean_err = abs(float(M.mean_across_envs([g.reward for g in graphs]))
+                   - float(wrapper._step_graph.reward.mean()))
+    if mean_err > SHARD_MEAN_TOL:
+        raise AssertionError(f"9a scanned: mean_across_envs of the reward "
+                             f"differs by {mean_err:.3g}")
+    state_first = next((f for f, (eq, _) in wd.items() if not eq), None)
+    b = NUM_ENVS // n
+    line = (f"phase 9a scanned: {n} shards on {[str(d) for d in mesh]} "
+            f"({' + '.join([str(b)] * n)} envs), ShardedLoop.scan_steps vs "
+            f"the unsharded scan_steps, {SHARD_STEPS} steps from "
+            f"reset({SEED}), same actions: frames max |diff| {rgb_err} "
+            f"counts (env 0 every step, every env at the last), "
+            f"segmentation equal {min(seg_agree):.6f}; WorldState "
+            + ("bit for bit" if state_first is None else
+               f"first differing field {state_first}, max |diff| "
+               f"{max(d for _, d in wd.values()):.3g}")
+            + f" (gate {SHARD_STATE_TOL}); mean_across_envs(reward) - "
+            f"unsharded mean {mean_err:.3g}; ms per scanned step (host "
+            f"clock, one synchronize at the end) sharded "
+            f"{t_s / SHARD_STEPS:.3f}, unsharded {t_u / SHARD_STEPS:.3f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    log(line)
+    return line
+
+
 def phase_shard():
     """9a: rollout_fps(shard=True) over env_mesh() (every visible card);
     the loop split into SHARDS shards on one card (and over every card,
@@ -2869,18 +3132,26 @@ def phase_shard():
     cam = env.cameras[0]
     if frames.shape != (NUM_ENVS, cam.height, cam.width, 3):
         raise AssertionError(f"9a: frames {frames.shape}")
+    s_fps, s_spf, s_frames = rollout_fps(wrapper, LOOP_STEPS, seed=SEED,
+                                         shard=True, use_scan=True)
+    if s_frames.shape != (LOOP_STEPS, cam.height, cam.width, 3):
+        raise AssertionError(f"9a: scanned frames {s_frames.shape}")
     lines = [f"phase 9a rollout_fps(shard=True), env_mesh() = "
              f"{[str(d) for d in mesh]}, {NUM_ENVS} envs x "
              f"{len(env.cameras)} cams {cam.width}x{cam.height}, "
              f"{LOOP_STEPS} steps: {fps:.2f} env-steps/s, "
              f"{1000.0 * spf:.3f} ms per step (host clock), launches "
-             f"{counts} ({time.perf_counter() - t0:.1f} s)"]
+             f"{counts}; scanned (use_scan=True, one graph replay per shard "
+             f"and step, best of 3 reps) {s_fps:.2f} env-steps/s, "
+             f"{1000.0 * s_spf:.3f} ms per step "
+             f"({time.perf_counter() - t0:.1f} s)"]
     log(lines[0])
     meshes = [M.env_mesh(["cuda:0"] * SHARDS)] + ([mesh] if len(mesh) > 1
                                                    else [])
     for m in meshes:
         line, rewards = shard_vs_unsharded(env, wrapper, m)
         lines.append(line)
+        lines.append(shard_scan_vs_unsharded(env, wrapper, m))
 
     # the process group: NCCL, one process, a file store (no network)
     store = os.path.join(OUT_DIR, "dist_store")
@@ -2977,6 +3248,10 @@ def main(argv=None):
     ap.add_argument("--dist-only", action="store_true",
                     help="run phases 1, 2, 9a and 9b only and print no "
                          "result line")
+    ap.add_argument("--loops-only", action="store_true",
+                    help="run phases 1, 2, 6c, the xArm loop of 6d and 9a "
+                         "only (the closed loops, eager and scanned) and "
+                         "print no result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_device()
@@ -2997,6 +3272,11 @@ def main(argv=None):
     if args.dist_only:
         phase_shard()
         phase_fidelity()
+        return           # a partial run prints no result line
+    if args.loops_only:
+        phase_closed_loop()
+        phase_xarm_loop()
+        phase_shard()
         return           # a partial run prints no result line
     t0 = time.perf_counter()
     renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
@@ -3025,18 +3305,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
     physics_lines = phase_physics()
     phase_rest()
-    loop_counts, loop_lines = phase_closed_loop()
+    loop_counts, scan_counts, loop_lines = phase_closed_loop()
     ee_lines = phase_ee_modes()
     task_lines = phase_tasks()
-    xarm_counts, xarm_line, wrapper = phase_xarm_loop()
-    st = wrapper.env.state
-    from gsworld_tpu_torch.wrapper.gs_env import world_poses
-    poses = world_poses(st.world, st.task)
-    phase_kernels(wrapper.renderer, poses, phase="6d",
-                  tint=wrapper.renderer.color_tint(poses.obj_color),
-                  timed=False)
+    # (both kernels vs plain on its tinted frames ran in phase_xarm_loop,
+    # on a scanned step's)
+    xarm_counts, xarm_lines, wrapper = phase_xarm_loop()
     check_tint(wrapper)
-    del wrapper, st, poses
+    del wrapper
     torch.cuda.empty_cache()
     scans = phase_scans(psnr5)
     demo_counts, demo_lines = phase_demos()
@@ -3054,13 +3330,18 @@ def main(argv=None):
         k["demo_loop_launches"] = demo_counts[k["name"]]
         if k["name"] != "composite_bwd":
             k["closed_loop_launches"] = loop_counts[k["name"]]
+            # the scanned loop launches its kernels from a graph replay:
+            # the counters move at capture, the profiler counts replays
+            k["scanned_loop_launches_before_replays"] = scan_counts[
+                k["name"]]
+            k["scanned_loop_kernels_per_replay"] = scan_counts["per_replay"]
             k["xarm_loop_launches"] = xarm_counts[k["name"]]
             k["scan_loop_launches"] = scans["scan_loop"][k["name"]]
             k["real2sim_loop_launches"] = scans["real2sim_loop"][k["name"]]
             k["shard_loop_launches"] = shard_counts[k["name"]]
     log(train_line)          # repeated here so the end of the log holds them
     log(slice_line)
-    for line in (physics_lines + loop_lines + ee_lines + [xarm_line]
+    for line in (physics_lines + loop_lines + ee_lines + xarm_lines
                  + scans["lines"] + demo_lines + shard_lines):
         log(line)
     line = json.dumps({"kernels": kernels})

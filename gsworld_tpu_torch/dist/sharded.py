@@ -12,7 +12,9 @@ once on the CPU and hands each shard its rows, and actions are drawn once
 for the whole batch and split by rows.  Each shard steps with its device
 current, so shards on different cards run side by side through
 asynchronous launches.  Observations come back on the mesh's first device
-in env order.
+in env order.  ``loop.scan_steps(actions)`` is the scanned loop of the
+split: on the card each shard replays its wrapper's CUDA graph of the
+whole step, one host call per shard and step.
 """
 
 from __future__ import annotations
@@ -122,6 +124,23 @@ class ShardedLoop:
             with _device_guard(dev):
                 outs.append(shard.step(a))
         return tuple(self._gather([o[k] for o in outs]) for k in range(5))
+
+    def scan_steps(self, actions):
+        """The scanned loop of the split (the JAX package's ``use_scan``
+        with ``shard``): ``actions`` (n, B, A) for all envs, split by rows
+        and copied to each shard's device once, then per step each
+        shard's actions copied into its graph and its graph replayed, one
+        shard after another, each with its device current (one host call
+        per shard and step) -> env 0's first-camera frames (n, H, W, 3)
+        uint8 from shard 0 (``rollout.random_actions.scan_shards``)."""
+        from gsworld_tpu_torch.rollout.random_actions import scan_shards
+        if not self._wrapped:
+            raise ValueError("the scanned loop renders: split a "
+                             "GSWorldWrapper, not a bare env")
+        parts = [p.to(dev) for p, dev in zip(
+            torch.as_tensor(actions, dtype=torch.float32).tensor_split(
+                len(self.mesh), dim=1), self.mesh)]
+        return scan_shards(self.shards, parts)
 
     @property
     def state(self):

@@ -449,8 +449,9 @@ class GsBaseEnv:
             root_pos=world.root_pos, root_quat=world.root_quat)
         return control_step(self.scene, world, target), target
 
-    def _physics(self, world: WorldState, prev_target, action):
-        if not (self.graph and world.qpos.is_cuda):
+    def _physics(self, world: WorldState, prev_target, action,
+                 physics_graph: bool = True):
+        if not (physics_graph and self.graph and world.qpos.is_cuda):
             return self._physics_eager(world, prev_target, action)
         if self._physics_graph is None:
             self._physics_graph = _PhysicsGraph(self, world, prev_target,
@@ -458,8 +459,14 @@ class GsBaseEnv:
         return self._physics_graph(world, prev_target, action)
 
     @torch.no_grad()
-    def _step_fn(self, state: EnvState, action):
-        world, target = self._physics(state.world, state.prev_target, action)
+    def _step_fn(self, state: EnvState, action, physics_graph: bool = True):
+        """One step of ``state`` -> (state, obs, reward, terminated,
+        truncated, info).  ``physics_graph=False`` runs the physics
+        eagerly even where the env replays its physics graph: a step being
+        captured into another CUDA graph (the wrapper's ``_StepGraph``)
+        cannot replay one."""
+        world, target = self._physics(state.world, state.prev_target, action,
+                                      physics_graph)
         elapsed = state.elapsed + 1
         state = EnvState(world=world, elapsed=elapsed, prev_target=target,
                          task=state.task)
@@ -578,17 +585,22 @@ class GsBaseEnv:
     def action_dim(self) -> int:
         return self.controller.action_dim
 
-    def action_space_sample(self, generator: Optional[torch.Generator] = None):
+    def action_space_sample(self, generator: Optional[torch.Generator] = None,
+                            steps: Optional[int] = None):
         """Uniform actions in [-1, 1), (B, action_dim), on the env's
         device, drawn from ``generator`` (on its own device) or from the
-        env's own CPU generator, which ``reset(seed)`` seeds."""
+        env's own CPU generator, which ``reset(seed)`` seeds.  With
+        ``steps``, the actions of that many steps, (steps, B, action_dim),
+        drawn as that many calls draw them and copied to the device
+        once."""
         if generator is None:
             if self._action_gen is None:
                 self._action_gen = torch.Generator().manual_seed(0)
             generator = self._action_gen
-        a = torch.rand((self.num_envs, self.action_dim), generator=generator,
-                       device=generator.device) * 2.0 - 1.0
-        return a.to(self.device)
+        a = [torch.rand((self.num_envs, self.action_dim), generator=generator,
+                        device=generator.device) * 2.0 - 1.0
+             for _ in range(1 if steps is None else steps)]
+        return (a[0] if steps is None else torch.stack(a)).to(self.device)
 
     def reset_draws(self, seed: int):
         """The uniform numbers of ``reset(seed)``, on the CPU: (episode

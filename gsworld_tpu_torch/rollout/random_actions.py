@@ -4,8 +4,13 @@ roll random actions for ``ep_len`` steps and measure the closed-loop rate
 (env steps per second including the GS render across all envs).
 
     python -m gsworld_tpu_torch.rollout.random_actions -n 4 --ep_len 30
+    python -m gsworld_tpu_torch.rollout.random_actions -n 4 --ep_len 30 --scan
 
-Runs on the card unless ``--device cpu`` is given.  The command line's
+``--scan`` runs the scanned loop, the counterpart of the JAX package's
+``lax.scan`` of the whole episode: each step replays one CUDA graph of
+the wrapper's whole step (physics, observation and GS render), with no
+host read between steps.  Runs on the card unless ``--device cpu`` is
+given.  The command line's
 defaults are the benchmark's configuration (``rgb+segmentation``, tile
 32, 64 tiles per Gaussian, 393216 entries per frame); ``build``'s own
 defaults are the smaller ones the tests use.  Another task:
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -58,6 +64,9 @@ def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
     return env, wrapper
 
 
+SCAN_REPS = 3   # timed reps of the scanned loop; the best one counts
+
+
 def _host_read(obs, env) -> np.ndarray:
     """The first camera's frames on the host: ends every queued kernel."""
     return obs["sensor_data"][env.cameras[0].name]["rgb"].cpu().numpy()
@@ -69,27 +78,91 @@ def _synchronize(devices):
             torch.cuda.synchronize(dev)
 
 
+def scan_shards(wrappers, actions):
+    """Step each of ``wrappers`` (shards of one loop, each on its own
+    device) through its own ``actions`` (n, B_k, A), one step of every
+    shard after another, from the states their envs hold -> env 0's
+    first-camera frames of the first shard, (n, H, W, 3) uint8 on its
+    device; each env is left at its new state.
+
+    On the card each shard replays its ``_StepGraph``: per step one copy
+    of the step's actions into the graph's input and one replay, queued
+    with the shard's device current, and one copy of the frame into a
+    buffer made before the first step, with no host read or copy to the
+    host before the end.  On the CPU the same steps run eagerly (the
+    plain version of the same function)."""
+    n = actions[0].shape[0]
+    w0 = wrappers[0]
+    cam = w0.env.cameras[0].name
+    if w0.env.device.type != "cuda":
+        frames = []
+        for i in range(n):
+            for k, (w, a) in enumerate(zip(wrappers, actions)):
+                w.env._state, obs, *_ = w._step_and_render(w.env._state,
+                                                           a[i])
+                if k == 0:
+                    frames.append(obs["sensor_data"][cam]["rgb"][0])
+        return torch.stack(frames)
+    graphs = [w.step_graph(a[0]) for w, a in zip(wrappers, actions)]
+    for w, g in zip(wrappers, graphs):
+        g.load(w.env._state)
+    src = graphs[0].obs["sensor_data"][cam]["rgb"][0]
+    frames = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                         device=src.device)
+    for i in range(n):
+        for k, (g, a) in enumerate(zip(graphs, actions)):
+            g.replay(a[i])
+            if k == 0:
+                with torch.cuda.device(src.device):
+                    frames[i].copy_(src)
+    for w, g in zip(wrappers, graphs):
+        w.env._state = g.state_clone()
+    return frames
+
+
+def scan_steps(wrapper, actions, state=None):
+    """The scanned loop (the JAX package's ``scan_fn``): ``actions`` (n,
+    B, A) on the env's device stepped from ``state`` (default: the env's
+    own) -> env 0's first-camera frames (n, H, W, 3) uint8; the env is
+    left at the new state.  On the card every step replays the wrapper's
+    CUDA graph of its whole step, and a capture that fails raises (the
+    scanned loop never runs eagerly on the card); on the CPU the steps
+    run eagerly."""
+    if state is not None:
+        wrapper.env._state = state
+    return scan_shards([wrapper], [actions])
+
+
 def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
                 use_scan: bool = False, shard: bool = False,
                 on_timed_start=None):
-    """Run the closed loop and return (env-steps/s, seconds per step, the
-    last frames of the first camera (B, H, W, 3) uint8).
+    """Run the closed loop and return (env-steps/s, seconds per step,
+    frames).
 
-    The loop is eager on the host, as a user's is; the env's physics step
-    replays its CUDA graph when the env was built with ``graph=True``.
-    The clock stops after a synchronize and a host read of the last frame.
-    ``use_scan`` asks for that graph path and raises where the env was
-    built without it.  ``shard`` splits the env axis over every visible
-    card (``dist.mesh.env_mesh()``; over the CPU for an env built there):
-    a ``dist.sharded.ShardedLoop`` of the wrapper, whose env i steps as
+    Eager (``use_scan=False``): the loop is on the host, as a user's is;
+    the env's physics step replays its CUDA graph when the env was built
+    with ``graph=True``.  After ``warmup`` steps, ``ep_len`` timed steps;
+    the clock stops after a synchronize and a host read of the last
+    frame, and ``frames`` are the last step's first-camera frames (B, H,
+    W, 3) uint8.
+
+    Scanned (``use_scan=True``), timed as the JAX package times its
+    ``lax.scan``: ``warmup`` scanned steps (the capture), then SCAN_REPS
+    reps of ``ep_len`` steps, each continuing from the state the last one
+    left, each with its own actions, drawn up front from the loop's CPU
+    generator (so a seed gives the eager loop's actions); each rep's
+    clock stops after a synchronize and the host read of its frames, and
+    the best rep counts.  ``frames`` are env 0's first-camera frames of
+    every step of the last rep, (ep_len, H, W, 3) uint8.
+
+    ``shard`` splits the env axis over every visible card
+    (``dist.mesh.env_mesh()``; over the CPU for an env built there): a
+    ``dist.sharded.ShardedLoop`` of the wrapper, whose env i steps as
     env i of the unsharded loop.  ``on_timed_start()`` is called after the
     reset and the warm-up steps, just before the clock starts (a caller's
     counters start there).
     """
     env = wrapper.env
-    if use_scan and env.device.type == "cuda" and not env.graph:
-        raise ValueError("use_scan asks for the captured physics step: "
-                         "build the env with graph=True")
     loop, devices = wrapper, [env.device]
     if shard:
         from gsworld_tpu_torch.dist.mesh import env_mesh
@@ -98,6 +171,23 @@ def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
         loop, devices = ShardedLoop(wrapper, mesh), list(mesh)
     obs, _ = loop.reset(seed=seed)
     gen = torch.Generator().manual_seed(seed)    # same actions on any device
+    if use_scan:
+        scan = (loop.scan_steps if shard
+                else functools.partial(scan_steps, wrapper))
+        if warmup:
+            scan(env.action_space_sample(gen, steps=warmup))
+        _synchronize(devices)
+        if on_timed_start is not None:
+            on_timed_start()
+        best = float("inf")
+        for _ in range(SCAN_REPS):
+            actions = env.action_space_sample(gen, steps=ep_len)
+            t0 = time.perf_counter()
+            frames = scan(actions)
+            _synchronize(devices)
+            frames = frames.cpu().numpy()
+            best = min(best, time.perf_counter() - t0)
+        return ep_len * env.num_envs / best, best / ep_len, frames
     for _ in range(warmup):
         obs, *_ = loop.step(env.action_space_sample(gen))
     _host_read(obs, env)
@@ -130,9 +220,11 @@ def parse_args(argv=None):
     p.add_argument("--max_tiles_per_gaussian", type=int, default=64)
     p.add_argument("--max_entries", type=int, default=393216)
     p.add_argument("--scan", action="store_true",
-                   help="require the captured (CUDA graph) physics step")
+                   help="the scanned loop: one CUDA graph replay of the "
+                        "whole step per step, best of 3 reps")
     p.add_argument("--no_graph", action="store_true",
-                   help="step the physics eagerly")
+                   help="step the physics eagerly in the eager loop (the "
+                        "scanned loop always replays its graph)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--save_video_dir", default=None)
     return p.parse_args(argv)
@@ -151,7 +243,12 @@ def main(argv=None):
                                    use_scan=args.scan)
     print(f"FPS: {fps:.2f} (env-steps/s incl. GS render, "
           f"{args.num_envs} envs, {spf*1000:.1f} ms/step)")
-    if args.save_video_dir:
+    if args.save_video_dir and args.scan:
+        # env 0's first camera, one frame per step (JAX's CLI saves
+        # frames[:, 0], the first pixel row of each frame: not copied)
+        from gsworld_tpu_torch.rollout.io_utils import save_images_to_dir
+        save_images_to_dir(frames, args.save_video_dir)
+    elif args.save_video_dir:
         import os
         os.makedirs(args.save_video_dir, exist_ok=True)
         np.save(os.path.join(args.save_video_dir, "last_frames.npy"), frames)

@@ -3,8 +3,12 @@ port's GSWorldWrapper against the JAX GSWorldWrapper (2 envs, 160x120, a
 small synthetic scene, the Pallas kernels in interpret mode), from the
 same bridged state with the same actions: every frame >= 40 dB (uint8
 PSNR; the JAX render quantizes colour to 10 bits and breaks depth
-near-ties differently), segmentation agreement >= 99.9%; and the same
-loop with JAX unavailable.
+near-ties differently), segmentation agreement >= 99.9%; the scanned
+loop (``scan_steps``, the counterpart of JAX's ``lax.scan`` of
+``_step_and_render``) from that state with those actions against the
+JAX frames and bit for bit against the port's eager frames;
+``rollout_fps(use_scan=True)``'s contract; and the same loop with JAX
+unavailable.
 """
 
 import dataclasses
@@ -23,8 +27,13 @@ from gsworld_tpu import envs as jenvs
 from gsworld_tpu.render.camera import RasterConfig as JCfg
 from gsworld_tpu.wrapper.gs_env import GSWorldWrapper as JWrapper
 from gsworld_tpu_torch.envs.base import env_state_from_numpy
-from gsworld_tpu_torch.rollout.random_actions import build, rollout_fps
-from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
+from gsworld_tpu_torch.rollout.random_actions import (
+    build,
+    main,
+    rollout_fps,
+    scan_steps,
+)
+from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper, _clone_state
 from torch_physics_common import (
     one_torch_thread,  # noqa: F401 (autouse fixture)
     jax_world_to_numpy,
@@ -46,7 +55,8 @@ def _psnr_u8(a, b):
 
 @pytest.fixture(scope="module")
 def loops():
-    """Both wrappers stepped STEPS times from the JAX env's reset state."""
+    """Both wrappers stepped STEPS times from the JAX env's reset state;
+    with the bridged start state and the STEPS actions."""
     jenv = jenvs.make("AlignFr3Env-v1", num_envs=B,
                       obs_mode="rgb+segmentation")
     jenv.cameras = [dataclasses.replace(c, width=W, height=H)
@@ -66,20 +76,22 @@ def loops():
     tenv._state = env_state_from_numpy(dict(
         world=jax_world_to_numpy(js.world), elapsed=np.asarray(js.elapsed),
         prev_target=np.asarray(js.prev_target), task={}), device="cpu")
+    start = _clone_state(tenv.state)
     rng = np.random.default_rng(9)
-    frames = []
+    frames, actions = [], []
     for _ in range(STEPS):
         a = rng.uniform(-1, 1, (B, 8)).astype(np.float32)
         jout = jw.step(jnp.asarray(a))
         tout = tw.step(a)
         frames.append((jout, tout))
-    return jenv, tenv, tw, frames
+        actions.append(a)
+    return jenv, tenv, tw, frames, start, torch.as_tensor(np.stack(actions))
 
 
 @pytest.mark.parametrize("step", range(STEPS))
 @pytest.mark.parametrize("cam", ["wrist_cam", "right_cam"])
 def test_frames_match_jax_wrapper(loops, step, cam):
-    _, _, _, frames = loops
+    frames = loops[3]
     jobs, tobs = frames[step][0][0], frames[step][1][0]
     assert set(tobs["sensor_data"]) == {"wrist_cam", "right_cam"}
     rgb = tobs["sensor_data"][cam]["rgb"].numpy()
@@ -97,7 +109,7 @@ def test_frames_match_jax_wrapper(loops, step, cam):
 
 
 def test_state_and_step_outputs_match(loops):
-    jenv, tenv, _, frames = loops
+    jenv, tenv, _, frames = loops[:4]
     (jobs, jr, jterm, jtrunc, jinfo), (tobs, tr, tterm, ttrunc, tinfo) = \
         frames[-1]
     for f in ("qpos", "a_pos", "a_quat"):
@@ -111,7 +123,7 @@ def test_state_and_step_outputs_match(loops):
 
 
 def test_frames_follow_the_state(loops):
-    _, tenv, tw, _ = loops
+    _, tenv, tw = loops[:3]
     before = tw.render_current_step()["right_cam"]["rgb"].clone()
     w = tenv.state.world
     a_pos = w.a_pos.clone()
@@ -124,7 +136,7 @@ def test_frames_follow_the_state(loops):
 
 
 def test_wrapper_surface(loops):
-    _, tenv, tw, _ = loops
+    _, tenv, tw = loops[:3]
     assert isinstance(tw, GSWorldWrapper)
     assert tw.num_envs == B and tw.action_dim == 8       # forwarded
     assert tw.agent is tenv.agent
@@ -140,6 +152,41 @@ def test_wrapper_surface(loops):
     np.testing.assert_array_equal(last_s, last)
     with pytest.raises(ValueError, match="renders on|render on"):
         GSWorldWrapper(tenv, "fr3_align", device="meta")
+
+
+def test_scan_steps_matches_jax_and_eager(loops):
+    """JAX's lax.scan of _step_and_render computes what its _jit_step
+    does, so the scanned loop's frames face the JAX wrapper's steps."""
+    _, tenv, tw, frames, start, actions = loops
+    cam = tenv.cameras[0].name
+    saved = tenv._state
+    try:
+        got = scan_steps(tw, actions, state=_clone_state(start)).numpy()
+    finally:
+        tenv._state = saved
+    assert got.shape == (STEPS, H, W, 3) and got.dtype == np.uint8
+    for i, (jout, tout) in enumerate(frames):
+        np.testing.assert_array_equal(
+            got[i], tout[0]["sensor_data"][cam]["rgb"][0].numpy())
+        p = _psnr_u8(got[i], np.asarray(jout[0]["sensor_data"][cam]["rgb"][0]))
+        assert p >= 40.0, f"step {i}: PSNR {p:.1f} dB"
+
+
+def test_rollout_fps_scan_returns_jax_contract(loops, tmp_path):
+    """(ep_len, H, W, 3) uint8 frames of env 0's first camera, the last of
+    3 reps (JAX's random_actions.py rollout_fps(use_scan=True)); the
+    actions are the eager loop's of the same seed; the CLI saves them."""
+    tw = loops[2]
+    fps, spf, frames = rollout_fps(tw, 1, seed=4, warmup=0, use_scan=True)
+    assert fps > 0 and spf > 0
+    assert frames.shape == (1, H, W, 3) and frames.dtype == np.uint8
+    # 3 reps of one step: the eager loop's third step
+    _, _, last = rollout_fps(tw, 3, seed=4, warmup=0)
+    np.testing.assert_array_equal(frames[-1], last[0])
+    main(["-n", "1", "--ep_len", "3", "--width", "32", "--height", "24",
+          "--synthetic_scale", "0.003", "--device", "cpu", "--scan",
+          "--save_video_dir", str(tmp_path)])
+    assert len(list(tmp_path.glob("frame_*.png"))) == 3
 
 
 def test_closed_loop_runs_without_jax():

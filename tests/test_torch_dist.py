@@ -18,6 +18,8 @@ conftest's virtual CPU devices:
     tests/test_torch_closed_loop.py.  JAX's sharded step + render compiles
     for ~45 s on the CPU, its render alone for ~16 s: the physics of the
     split is held to JAX by the PnpBox step;
+  * the scanned loop of the split (``ShardedLoop.scan_steps``) against
+    the unsharded ``scan_steps``, bit for bit;
   * ``rollout_fps(shard=True)`` on a CPU env, the process group (gloo
     through a file store, one and two processes), and the sharded loop
     with JAX unavailable.
@@ -53,7 +55,11 @@ from gsworld_tpu_torch.dist import mesh as M
 from gsworld_tpu_torch.dist.sharded import ShardedLoop
 from gsworld_tpu_torch.envs.base import env_state_to_numpy
 from gsworld_tpu_torch.physics.world import WORLD_FIELDS
-from gsworld_tpu_torch.rollout.random_actions import build, rollout_fps
+from gsworld_tpu_torch.rollout.random_actions import (
+    build,
+    rollout_fps,
+    scan_steps,
+)
 from torch_physics_common import (
     one_torch_thread,  # noqa: F401 (autouse fixture)
     numpy_to_jax_world,
@@ -281,6 +287,25 @@ def test_rollout_fps_shard_on_cpu(align):
     np.testing.assert_array_equal(last, want.numpy())
 
 
+def test_sharded_scan_equals_unsharded_scan(align):
+    """The split's scanned loop: env i of the unsharded scan, bit for bit
+    (frames of env 0 at every step and every env's state)."""
+    env, w, loop, _ = align
+    saved = [env._state] + [s.env._state for s in loop.shards]
+    try:
+        acts = env.action_space_sample(torch.Generator().manual_seed(5),
+                                       steps=2)
+        want = scan_steps(w, acts)
+        got = loop.scan_steps(acts)
+        assert got.shape == (2, H, W, 3) and got.dtype == torch.uint8
+        assert torch.equal(got, want)
+        _assert_states_equal(loop.state, env.state)
+    finally:
+        env._state = saved[0]
+        for s, st in zip(loop.shards, saved[1:]):
+            s.env._state = st
+
+
 # ------------------------------------------------------------------ #
 # the process group
 # ------------------------------------------------------------------ #
@@ -349,6 +374,9 @@ def test_sharded_loop_runs_without_jax():
         assert obs["sensor_data"]["right_cam"]["rgb"].shape == (2, 48, 64, 3)
         fps, _, last = rollout_fps(w, 1, warmup=0, shard=True)
         assert fps > 0 and last.shape == (2, 48, 64, 3)
+        _, _, frames = rollout_fps(w, 1, warmup=0, shard=True,
+                                   use_scan=True)
+        assert frames.shape == (1, 48, 64, 3)
         bad = [m for m in sys.modules
                if m == "gsworld_tpu" or m.startswith("gsworld_tpu.")
                or m == "flax" or m.startswith("flax.")]
