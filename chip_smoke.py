@@ -39,45 +39,68 @@ Phases (each prints a line; any failure exits non-zero before a result):
               cameras on a 120-degree arc is the truth, the middle view is
               held out; the scene is rebuilt from its noisy means and
               colours for 300 iterations (densify at 100, 200, 300, capacity
-              2N); launch counts, ms per step, losses, alive counts,
-              held-out PSNR, peak memory
+              2N), through the train step's CUDA graph (one replay per
+              iteration) and eagerly (graph=False), 8 runs of each,
+              alternated: host launch counts (the graph's: its warm-up
+              steps and capture), ms per step, losses, alive counts, the
+              mean held-out PSNRs of the two forms within 0.1 dB, peak
+              memory; one train step graph vs eager within
+              1e-4 of each field's max beside the eager-vs-eager spread,
+              its loss and image unchanged by the next replay; in the
+              graph run, one call of the graph per iteration and, by the
+              profiler over the 3 replays after the first densify, one
+              emit, compositor and backward kernel per replay
   5b. step    one training step of a ~2k-Gaussian scene at 160x120 on the
               card against the same step on the CPU
   6a. physics AlignFr3Env-v1 (obs_mode state_dict) at 1, 4 and 64 envs:
-              reset(seed), 30 control steps of random actions, eager and
-              through the CUDA graph of the physics step: ms per step,
-              env-steps/s, kernels per step, peak memory; a torch.profiler
-              window by physics stage; 10 graph steps against 10 eager
-              steps, every WorldState field bit for bit; one control step
-              on the card against the same step on the CPU
+              reset(seed), env.step calls of random actions, 10 eager
+              (graph=False) and 30 through the CUDA graph of the whole
+              step:
+              ms per step, env-steps/s, kernels per step, peak memory;
+              torch.profiler windows; 10 graph steps against 10 eager
+              steps, every tensor each step returns and every state field
+              bit for bit, step k's outputs unchanged after step k + 1;
+              one control step on the card against the same step on the
+              CPU
   6b. sanity  40 zero-action steps on the card: both cans rest, the arm
               holds its init pose, no pair force, nothing non-finite
   6c. loop    rollout.random_actions.build + rollout_fps: the closed loop
               (physics step, then the GS render of the new state) at 4
               envs x 2 cameras 640x480 for 30 steps, at 1 env, and at 64
-              envs for 3 steps; split into physics and render by CUDA
-              events; launch counts; the frames follow a moved can.  Then
+              envs for 3 steps, eager (graph=False, at most 10 steps: one
+              emit and one compositor launch per step) and through the
+              wrapper's CUDA
+              graph (one replay per step; one emit and one compositor
+              kernel per replay by the profiler); the eager step split
+              into physics and render by CUDA events; the frames follow a
+              moved can; at 4 envs 10 steps through the graph against 10
+              graph=False steps from one reset(seed), interleaved, every
+              tensor each step returns and the state bit for bit, step
+              k's outputs unchanged after step k + 1.  Then
               the scanned loop on the same wrappers (rollout_fps(use_scan=
               True): the wrapper's whole step captured as one CUDA graph,
               one replay per step, best of 3 reps): ms per step beside the
               eager loop's, peak memory, the launches of the capture, and
               by the profiler over 3 scanned steps exactly one emit and one
-              compositor kernel per replay and no copy to the host; at 4
+              compositor kernel per replay and no copy to the host (their
+              frames bit for bit the same steps run eagerly); at 4
               envs 10 scanned steps against 10 eager steps from one
               reset(seed) with the same actions, every env's and camera's
               rgb and segmentation, every WorldState field, prev_target and
               the task state bit for bit, and emit and compositor vs plain
-              on a scanned step's frames
+              on a graph step's frames
   6d. more    AlignFr3Env-v1 at 4 envs in pd_ee_delta_pos and
               pd_ee_delta_pose (IK inside the captured step): eager and
               graph steps, graph vs eager bit for bit (WorldState and
               prev_target), one step card vs CPU; every other task at 4
               envs: reset(seed) card == CPU bit for bit, 3 steps card vs
-              CPU, flags and task state; AlignXArmEnv-v1 with domain
+              CPU, flags and task state; the pd_ee_delta_pose closed loop
+              through the wrapper's graph vs graph=False as 6c's;
+              AlignXArmEnv-v1 with domain
               randomization through rollout.random_actions at 4 envs x 2
               cameras 640x480 (the xarm6_align scene at the bench sizes),
-              one emit and one compositor launch per step, and its
-              scanned loop as 6c's (tint and camera noise inside the
+              eager and through the graph as 6c's, and its scanned loop
+              as 6c's (tint and camera noise inside the
               graph; scanned vs eager bit for bit); both kernels vs plain
               on the 8 tinted frames of a scanned step; the tint moves
               only pixels the objects reach
@@ -108,9 +131,12 @@ Phases (each prints a line; any failure exits non-zero before a result):
               the full synthetic scene, sim 100 / control 20, recorded to
               HDF5 (an in-memory stand-in where h5py is missing) and
               video: plan ok or failed, success, steps, seconds, ms per
-              control step, the IK's ms per waypoint, overflow, one emit
-              and one compositor launch per rendered step; the success
-              table
+              control step (through the wrapper's graph), the IK's ms per
+              waypoint, overflow, host launches (the resets and the
+              capture), one emit and one compositor kernel per replayed
+              step by the profiler, 10 more steps through the graph vs
+              graph=False bit for bit with ms per step of both; the
+              success table
   8b. replay  AlignFr3's and AlignXArm's recorded episodes replayed by
               replay_h5 through the same wrappers: the recorded frames bit
               for bit; both kernels vs plain on a replayed state's frames;
@@ -121,8 +147,10 @@ Phases (each prints a line; any failure exits non-zero before a result):
               checker's configurations per ms); an env state checkpoint
               round trip and GSWorldWrapper(log_state=True)'s bundles
   9a. shard   rollout_fps(shard=True) over env_mesh() (every visible card)
-              at 4 envs x 2 cameras 640x480 for 30 steps, one emit and one
-              compositor launch per shard per step; the loop split into 2
+              at 4 envs x 2 cameras 640x480 for 30 steps, each shard
+              stepping through its wrapper's graph (no host launch after
+              the capture; one emit and one compositor kernel per shard
+              and step by the profiler); the loop split into 2
               shards on one card (dist.sharded.ShardedLoop over
               ["cuda:0", "cuda:0"]), and over every card where more than
               one is visible, against the unsharded loop from the
@@ -188,9 +216,18 @@ TRAIN_ITERS = 300
 TRAIN_VIEWS = 9
 TRAIN_ARC_DEG = 120.0
 STEP_TOL = 1e-4         # one train step, card vs CPU, relative to field max
+TRAIN_PSNR_GAP = 0.1    # dB, phase 5's held-out PSNR, graph vs eager
+TRAIN_PSNR_RUNS = 8     # runs of each form whose mean PSNRs the gate compares
+TRAIN_PROFILE_STEPS = 3  # phase 5's graph replays in the profiler's window
+# each wrapper's CUDA kernel, by the name the profiler shows
+KERNEL_NAMES = {"emit_entries": "emit_kernel",
+                "composite_tiles": "composite_kernel",
+                "composite_bwd": "composite_bwd_kernel"}
 BURST = 50              # launches per window of the back-to-back clock
 PHYS_ENVS = (1, 4, 64)
 PHYS_STEPS = 30
+EAGER_STEPS = 10        # timed steps of an eager form (host-bound, 4-10x
+                        # its graph's step)
 GRAPH_STEPS = 10        # graph vs eager, bit for bit
 # one control step, card vs CPU, from the same state (absolute)
 PHYS_POS_TOL = 1e-5
@@ -205,6 +242,7 @@ SEG_AGREE_MIN = 0.999
 LOOP_STEPS_64 = 3
 SCAN_CHECK_STEPS = 10   # scanned vs eager, bit for bit (6c, 6d, 9a)
 SCAN_PROFILE_STEPS = 3  # scanned steps in the profiler's window
+PROFILE_MARGIN_S = 0.02  # host idle time at each edge of a profiler window
 EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose")
 OTHER_TASKS = ("PnpBoxFr3Env-v1", "PourMustardFr3Env-v1", "StackFr3Env-v1",
                "AlignXArmEnv-v1", "BananaRotationXArmEnv-v1",
@@ -230,6 +268,7 @@ DEMO_REPLAY = ("AlignFr3Env-v1", "AlignXArmEnv-v1")
 DEMO_W, DEMO_H = 640, 480
 DEMO_DRY_TOL = 1e-5     # rad, dry-run waypoints card vs CPU
 DEMO_CPU_STEPS = 10
+DEMO_CHECK_STEPS = 5    # 8a: graph vs eager steps after each episode
 # compare_trajectories card vs CPU over the first 10 steps, m and rad:
 # measured on an H100: 0 for every actor, 6.1e-7 qpos RMSE
 DEMO_TRAJ_TOL = 1e-5
@@ -1110,36 +1149,70 @@ def train_params():
                               opacity_reset_interval=10_000)
 
 
-def phase_train(setup):
-    """3DGS training through the entry point, at full size on the card."""
+def train_run(setup, graph):
+    """Phase 5's training through the entry point at full size on the
+    card, through one CUDA graph of the train step (``graph``) or eagerly
+    -> dict of its results.  The launch counters see the eager run's
+    launches, and for the graph run the warm-up steps and the capture
+    only (one graph per ``train`` call).  The graph run also counts the
+    graph's calls (one replay each: TRAIN_ITERS), and the profiler counts
+    the kernels of the TRAIN_PROFILE_STEPS replays after the first
+    densify (one emit, one compositor and one backward kernel each, and
+    the loss reads); those steps are left out of the step times."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from gsworld_tpu_torch.real2sim.pipeline import train_from_colmap_model
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.train3dgs.loss import psnr
-    from gsworld_tpu_torch.train3dgs.train import render_trainable
+    from gsworld_tpu_torch.train3dgs.train import (TrainStepGraph,
+                                                   render_trainable)
 
+    what = "train (graph)" if graph else "train (eager)"
     cams, images = setup.split()
     step_s, densified_at = [], []
     clock = [0.0]
+    densify0 = train_params().densify_from_iter
+    window = range(densify0 + 1, densify0 + 1 + TRAIN_PROFILE_STEPS)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof_wall = [0.0]
 
     def on_step(it, state, loss, densified):
         torch.cuda.synchronize()
         now = time.perf_counter()
-        step_s.append((now - clock[0], densified))
-        clock[0] = now
+        step_s.append((now - clock[0], densified or it in window))
         if densified:
             densified_at.append((it, int(state.ds.alive.sum())))
+        if graph and it == window.start - 1:
+            prof.start()
+            time.sleep(PROFILE_MARGIN_S)
+            prof_wall[0] = time.perf_counter()
+        elif graph and it == window.stop - 1:
+            prof_wall[0] = now - prof_wall[0]
+            time.sleep(PROFILE_MARGIN_S)
+            prof.stop()
+        clock[0] = time.perf_counter()
+
+    calls = [0]
+    replay = TrainStepGraph.__call__
+
+    def counted(self, *a):
+        calls[0] += 1
+        return replay(self, *a)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rc.reset_launch_counts()
-    clock[0] = t0 = time.perf_counter()
-    scene, losses = train_from_colmap_model(
-        setup.points, setup.colors, cams, images, setup.cfg,
-        params=train_params(), iterations=TRAIN_ITERS,
-        capacity=setup.capacity, seed=SEED, device=setup.device,
-        callback=on_step)
-    wall = time.perf_counter() - t0
+    TrainStepGraph.__call__ = counted
+    try:
+        clock[0] = t0 = time.perf_counter()
+        scene, losses = train_from_colmap_model(
+            setup.points, setup.colors, cams, images, setup.cfg,
+            params=train_params(), iterations=TRAIN_ITERS,
+            capacity=setup.capacity, seed=SEED, device=setup.device,
+            callback=on_step, graph=graph)
+        wall = time.perf_counter() - t0
+    finally:
+        TrainStepGraph.__call__ = replay
     counts = dict(rc.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
@@ -1149,58 +1222,191 @@ def phase_train(setup):
         hold_psnr = float(psnr(out, setup.images[setup.hold]))
 
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError("train: a loss is not finite")
+        raise AssertionError(f"{what}: a loss is not finite")
     first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
     if not last < 0.8 * first:
-        raise AssertionError(f"train: mean loss of the last 20 iterations "
+        raise AssertionError(f"{what}: mean loss of the last 20 iterations "
                              f"{last:.5f} is not below 0.8 x the first 20 "
                              f"{first:.5f}")
     alive = [n for _, n in densified_at]
     if len(densified_at) != 3 or all(n == setup.n for n in alive):
-        raise AssertionError(f"train: densify ran at {densified_at}, "
+        raise AssertionError(f"{what}: densify ran at {densified_at}, "
                              f"expected 3 passes that change the alive count")
+    want = TrainStepGraph.WARMUP + 1 if graph else TRAIN_ITERS
     for name, n in counts.items():
-        if n < TRAIN_ITERS:
-            raise AssertionError(f"train: kernel {name} launched {n} times "
-                                 f"in {TRAIN_ITERS} iterations")
-    ms = [1000.0 * dt for dt, d in step_s[5:] if not d]
-    med = statistics.median(ms)
+        if n != want:
+            raise AssertionError(f"{what}: kernel {name} launched {n} times "
+                                 f"from the host in {TRAIN_ITERS} iterations "
+                                 f"(want {want})")
+    if calls[0] != (TRAIN_ITERS if graph else 0):
+        raise AssertionError(f"{what}: the train-step graph was called "
+                             f"{calls[0]} times in {TRAIN_ITERS} iterations")
+    prof_text, per = None, None
+    if graph:
+        prof_text, per = window_kernels(
+            prof, TRAIN_PROFILE_STEPS,
+            f"train-step replays after the first densify (iterations "
+            f"{window.start}-{window.stop - 1})",
+            ("emit_kernel", "composite_kernel", "composite_bwd_kernel"), 1,
+            TRAIN_PROFILE_STEPS, prof_wall[0])
+    ms = [1000.0 * dt for dt, skip in step_s[5:] if not skip]
+    return dict(scene=scene, losses=losses, counts=counts, peak=peak,
+                psnr=hold_psnr, wall=wall, ms=ms, first=first, last=last,
+                densified_at=densified_at, replays=calls[0],
+                prof_text=prof_text, per_replay=per)
+
+
+def phase_train(setup):
+    """5: 3DGS training through the entry point at full size, through the
+    train step's CUDA graph and eagerly in the same call, TRAIN_PSNR_RUNS
+    times each: mean held-out PSNRs of the two within TRAIN_PSNR_GAP; the
+    graph's calls and the profiler's kernels per replay in each graph
+    run; one step graph vs eager; the eager step's stages by the
+    profiler."""
+    # the backward kernel's sums are not repeated bit for bit, and 300
+    # iterations with densify carry that into the held-out PSNR (one eager
+    # run against another: up to 0.13 dB), so the gate compares the mean
+    # of TRAIN_PSNR_RUNS runs of each form, alternated
+    every = {True: [], False: []}
+    for k in range(TRAIN_PSNR_RUNS):
+        for g in (True, False):
+            every[g].append(train_run(setup, g))
+            if k:
+                del every[g][-1]["scene"]
+    psnrs = {g: [x["psnr"] for x in every[g]] for g in every}
+    mean = {g: statistics.mean(v) for g, v in psnrs.items()}
+    if abs(mean[True] - mean[False]) > TRAIN_PSNR_GAP:
+        raise AssertionError(f"train: mean held-out PSNR through the graph "
+                             f"{mean[True]:.3f} dB {psnrs[True]}, eager "
+                             f"{mean[False]:.3f} dB {psnrs[False]} (gate "
+                             f"{TRAIN_PSNR_GAP} dB)")
+    runs = {g: x[0] for g, x in every.items()}
+    r = runs[True]
+    losses, n_it = r["losses"], TRAIN_ITERS
+    parts = []
+    for graph, name in ((True, "graph"), (False, "eager")):
+        x = runs[graph]
+        med = statistics.median(x["ms"])
+        parts.append(f"{name} (first run) {x['wall']:.2f} s, {med:.3f} ms "
+                     f"per train "
+                     f"step (median of {len(x['ms'])} without densify and "
+                     f"the profiled steps; min "
+                     f"{min(x['ms']):.3f}, max {max(x['ms']):.3f}), held-out "
+                     f"PSNR {x['psnr']:.3f} dB, peak memory "
+                     f"{x['peak'] / 2**30:.3f} GiB, host launches "
+                     f"{x['counts']}")
+    cams, _ = setup.split()
     line = (f"phase 5 train: {setup.n} Gaussians (capacity {setup.capacity})"
             f", {len(cams)} views {setup.cfg.width}x{setup.cfg.height} (+1 "
-            f"held out), {TRAIN_ITERS} iterations in {wall:.2f} s: "
-            f"{med:.3f} ms per train step (median of {len(ms)} without "
-            f"densify; min {min(ms):.3f}, max {max(ms):.3f}), loss "
-            f"{losses[0]:.5f} / {losses[TRAIN_ITERS // 3 - 1]:.5f} / "
-            f"{losses[2 * TRAIN_ITERS // 3 - 1]:.5f} / {losses[-1]:.5f} at "
-            f"iterations 1/{TRAIN_ITERS // 3}/{2 * TRAIN_ITERS // 3}/"
-            f"{TRAIN_ITERS} (first 20 "
-            f"mean {first:.5f}, last 20 {last:.5f}), alive after densify "
-            f"{densified_at} -> {scene.num_gaussians} returned, held-out "
-            f"PSNR {hold_psnr:.2f} dB, peak memory {peak / 2**30:.3f} GiB, "
-            f"launches {counts}")
+            f"held out), {n_it} iterations: " + "; ".join(parts)
+            + f"; held-out PSNR of {TRAIN_PSNR_RUNS} runs of each form, "
+            f"alternated: graph {[round(v, 3) for v in psnrs[True]]}, eager "
+            f"{[round(v, 3) for v in psnrs[False]]}, mean graph - mean eager "
+            f"{mean[True] - mean[False]:+.3f} dB (gate {TRAIN_PSNR_GAP}); "
+            f"graph: loss {losses[0]:.5f} / "
+            f"{losses[n_it // 3 - 1]:.5f} / {losses[2 * n_it // 3 - 1]:.5f} "
+            f"/ {losses[-1]:.5f} at iterations 1/{n_it // 3}/"
+            f"{2 * n_it // 3}/{n_it} (first 20 mean {r['first']:.5f}, last "
+            f"20 {r['last']:.5f}), alive after densify {r['densified_at']} "
+            f"-> {r['scene'].num_gaussians} returned")
     log(line)
-    profile_train(setup, scene, cams, images)
-    return counts, line, hold_psnr
+    prof_line = (f"phase 5 train graph: {r['replays']} calls of the "
+                 f"train-step graph in {n_it} iterations; {r['prof_text']}")
+    log(prof_line)
+    step_line = train_step_graph_vs_eager(setup, r["scene"])
+    profile_train(setup, r["scene"])
+    return r["counts"], [line, step_line, prof_line], r["psnr"], \
+        runs[False]["counts"], dict(replays=r["replays"],
+                                    per_replay=r["per_replay"])
 
 
-def profile_train(setup, scene, cams, images):
-    """Profile 3 train steps of the trained scene (padded back to its
-    capacity, fresh optimizer state)."""
+def _train_state(setup, scene):
+    """A fresh TrainState of ``scene`` padded to the setup's capacity."""
     from gsworld_tpu_torch.train3dgs.densify import (init_densify_state,
                                                       pad_scene_capacity)
     from gsworld_tpu_torch.train3dgs.optim import adam_init
-    from gsworld_tpu_torch.train3dgs.train import TrainState, make_train_step
+    from gsworld_tpu_torch.train3dgs.train import TrainState
     n = scene.num_gaussians
     scene = pad_scene_capacity(scene, setup.capacity)
-    state = [TrainState(scene=scene,
-                        ds=init_densify_state(setup.capacity, n,
-                                              setup.device),
-                        opt_state=adam_init(scene), step=0)]
-    train_step = make_train_step(setup.cfg, train_params())
+    return TrainState(scene=scene,
+                      ds=init_densify_state(setup.capacity, n, setup.device),
+                      opt_state=adam_init(scene), step=0)
+
+
+def train_step_graph_vs_eager(setup, scene):
+    """One train step from one state (the trained scene after one eager
+    step, so that Adam's moments hold a gradient), through the graph and
+    eagerly twice: every scene field, Adam moment, densify statistic and
+    the loss of the graph step within STEP_TOL of the first eager one,
+    relative to the field's max; the spread of the two eager steps (the
+    backward's index_add_ adds in no fixed order) printed beside it ->
+    line."""
+    import torch
+    from gsworld_tpu_torch.gs.model import SCENE_FIELDS
+    from gsworld_tpu_torch.train3dgs.train import (_clone_train_state,
+                                                   make_train_step)
+    cams, images = setup.split()
+    params = train_params()
+    base, _, _ = make_train_step(setup.cfg, params, graph=False)(
+        _train_state(setup, scene), cams[0], images[0])
+    outs = []
+    for graph in (False, False, True):
+        train_step = make_train_step(setup.cfg, params, graph=graph)
+        st, loss, img = train_step(_clone_train_state(base), cams[1],
+                                   images[1])
+        torch.cuda.synchronize()
+        fields = {f: getattr(st.scene, f) for f in SCENE_FIELDS
+                  if getattr(st.scene, f).is_floating_point()}
+        fields.update({f"mu.{k}": v for k, v in st.opt_state.mu.items()})
+        fields.update({f"nu.{k}": v for k, v in st.opt_state.nu.items()})
+        fields.update({f"ds.{k}": getattr(st.ds, k)
+                       for k in ("grad_accum", "denom", "max_radii")})
+        fields["loss"] = loss.reshape(1)
+        outs.append({k: v.clone() for k, v in fields.items()})
+    # the graph step's loss and image are its own: a second replay leaves
+    # them as they were
+    kept = loss.clone(), img.clone()
+    train_step(st, cams[2], images[2])
+    torch.cuda.synchronize()
+    if not (torch.equal(loss, kept[0]) and torch.equal(img, kept[1])):
+        raise AssertionError("train step: the graph step's loss or image "
+                             "changed at the next step")
+
+    def rel(a, b):
+        return {k: float((a[k].double() - b[k].double()).abs().max())
+                / max(float(b[k].double().abs().max()), 1e-30) for k in b}
+
+    gate, spread = rel(outs[2], outs[0]), rel(outs[1], outs[0])
+    if max(gate.values()) > STEP_TOL:
+        bad = {k: v for k, v in gate.items() if v > STEP_TOL}
+        raise AssertionError(f"train step: graph vs eager {bad} (gate "
+                             f"{STEP_TOL}); eager vs eager "
+                             f"{ {k: spread[k] for k in bad} }")
+    worst = max(gate, key=gate.get)
+    line = (f"phase 5 train step graph vs eager, one step of the trained "
+            f"scene at capacity {setup.capacity}: max |graph - eager| / max "
+            f"|eager| over {len(gate)} fields (scene, Adam moments, densify "
+            f"statistics, loss) {gate[worst]:.3g} ({worst}; gate "
+            f"{STEP_TOL}), eager vs eager {max(spread.values()):.3g} "
+            f"({max(spread, key=spread.get)}); graph vs eager per field "
+            f"{ {k: float(f'{v:.3g}') for k, v in gate.items()} }; the "
+            f"graph step's loss and image unchanged after the next replay")
+    log(line)
+    return line
+
+
+def profile_train(setup, scene):
+    """The trained scene's eager train step (padded back to its capacity,
+    fresh optimizer state): 3 steps under the profiler by stage
+    (``phase_profile``)."""
+    from gsworld_tpu_torch.train3dgs.train import make_train_step
+    cams, images = setup.split()
+    state = [_train_state(setup, scene)]
+    train_step = make_train_step(setup.cfg, train_params(), graph=False)
 
     def step(i):
         state[0], loss, _ = train_step(state[0], cams[i], images[i])
-        float(loss)        # the training loop reads every loss
+        float(loss)            # the training loop reads every loss
 
     phase_profile(5, "train", step)
 
@@ -1275,8 +1481,8 @@ def card_vs_cpu(env, cpu_env, a, what):
     from gsworld_tpu_torch.physics.world import (world_state_from_numpy,
                                                   world_state_to_numpy)
     start = world_state_to_numpy(env.state.world)
-    w_card, _ = env._physics_eager(env.state.world, env.state.prev_target, a)
-    w_cpu, _ = cpu_env._physics_eager(
+    w_card, _ = env._physics(env.state.world, env.state.prev_target, a)
+    w_cpu, _ = cpu_env._physics(
         world_state_from_numpy(start, device="cpu"),
         env.state.prev_target.cpu(), a.cpu())
     d = {f: v[1] for f, v in world_diff(w_card, w_cpu).items()}
@@ -1339,13 +1545,30 @@ def count_kernels(step, n=3):
     return k / n if k else None
 
 
+def env_graph_vs_eager(B, what, **kw):
+    """``env.step`` of a ``graph=True`` env against a ``graph=False`` env
+    (``kw`` to both) from reset(SEED + 3) with GRAPH_STEPS seeded actions
+    (``graph_steps_vs_eager``) -> (eager env, graphed env, actions)."""
+    eager = make_env(B, "cuda", False, **kw)
+    graphed = make_env(B, "cuda", True, **kw)
+    actions = seeded_actions(eager, GRAPH_STEPS, seed=SEED + 7)
+    eager.reset(seed=SEED + 3)
+    graphed.reset(seed=SEED + 3)
+    graph_steps_vs_eager(graphed.step, eager.step, actions, what,
+                         lambda: graphed.state, lambda: eager.state)
+    if graphed._step_graph is None:
+        raise AssertionError(f"{what}: stepped without a captured graph")
+    return eager, graphed, actions
+
+
 def physics_steps(B, graph, **kw):
-    """reset(SEED), two warm-up steps, then PHYS_STEPS timed env.step of
-    seeded random actions -> (env, ms per step, peak bytes, kernels per
-    step).  ``kw`` go to the env (another control mode)."""
+    """reset(SEED), two warm-up steps, then PHYS_STEPS (EAGER_STEPS
+    without ``graph``) timed env.step of seeded random actions -> (env, ms
+    per step, peak bytes, kernels per step).  ``kw`` go to the env
+    (another control mode)."""
     import torch
     env = make_env(B, "cuda", graph, **kw)
-    actions = seeded_actions(env, PHYS_STEPS)
+    actions = seeded_actions(env, PHYS_STEPS if graph else EAGER_STEPS)
     env.reset(seed=SEED)
     for a in actions[:2]:
         env.step(a)
@@ -1373,7 +1596,7 @@ def phase_physics():
         for graph in (False, True):
             res[graph] = physics_steps(B, graph)
         env = res[True][0]
-        if env._physics_graph is None:
+        if env._step_graph is None:
             raise AssertionError("physics: graph=True stepped without a "
                                  "captured graph")
         rows = contact_row_count(env.scene)
@@ -1388,30 +1611,22 @@ def phase_physics():
                 + ("kernels per step not measured" if kernels is None
                    else f"{kernels:.0f} kernels per step")
                 + f", peak memory {peak / 2**30:.3f} GiB")
-        line = (f"phase 6a physics, AlignFr3Env-v1, {B} envs, {rows} contact "
-                f"rows, {env.scene.substeps} substeps: " + "; ".join(parts))
+        line = (f"phase 6a env step (physics, observation, reward), "
+                f"AlignFr3Env-v1, {B} envs, {rows} contact rows, "
+                f"{env.scene.substeps} substeps: " + "; ".join(parts))
         log(line)
         lines.append(line)
         if B == NUM_ENVS:
             keep = res
 
     # ---- graph vs eager, bit for bit, from the same state and actions
-    eager, graphed = make_env(NUM_ENVS, "cuda", False), \
-        make_env(NUM_ENVS, "cuda", True)
-    actions = seeded_actions(eager, GRAPH_STEPS, seed=SEED + 7)
-    eager.reset(seed=SEED + 3)
-    graphed.reset(seed=SEED + 3)
-    for i, a in enumerate(actions):
-        eager.step(a)
-        graphed.step(a)
-        d = world_diff(eager.state.world, graphed.state.world)
-        bad = {f: v[1] for f, v in d.items() if not v[0]}
-        if bad:
-            raise AssertionError(f"physics: graph and eager differ at step "
-                                 f"{i + 1}: max |diff| {bad}")
-    log(f"phase 6a graph vs eager, {NUM_ENVS} envs, {GRAPH_STEPS} control "
-        f"steps from one state and the same actions: every WorldState "
-        f"field bit for bit")
+    eager, graphed, actions = env_graph_vs_eager(NUM_ENVS, "6a env step")
+    log(f"phase 6a graph vs eager, {NUM_ENVS} envs, {GRAPH_STEPS} env.step "
+        f"calls (the whole step through its graph) from one state and the "
+        f"same actions: every tensor each step returns (observation, "
+        f"reward, flags, info), every WorldState field, prev_target and "
+        f"the task state bit for bit after every step; step k's outputs "
+        f"unchanged after step k + 1")
 
     # ---- one control step, card vs CPU, from the same state; and from
     # the state PR 5 read its contact_lam gap on (its episode drawn by the
@@ -1432,8 +1647,8 @@ def phase_physics():
     # ---- profile by stage (eager: the ranges mark the launches)
     env_e, env_g = keep[False][0], keep[True][0]
     acts = seeded_actions(env_e, 3, seed=SEED + 11)
-    phase_profile("6a", "physics_eager", lambda i: env_e.step(acts[i]))
-    phase_profile("6a", "physics_graph", lambda i: env_g.step(acts[i]))
+    phase_profile("6a", "env_step_eager", lambda i: env_e.step(acts[i]))
+    phase_profile("6a", "env_step_graph", lambda i: env_g.step(acts[i]))
     return lines
 
 
@@ -1467,8 +1682,9 @@ def phase_rest():
 
 
 def loop_steps(wrapper, n, seed=SEED):
-    """``n`` closed-loop steps timed in two parts by CUDA events:
-    -> (physics ms, render ms) medians, last obs."""
+    """``n`` eager closed-loop steps timed in two parts by CUDA events
+    (the env's ``_step_fn``, then the render; a graph replay cannot be
+    split): -> (physics ms, render ms) medians, last obs."""
     import torch
     env = wrapper.env
     gen = torch.Generator(device=env.device).manual_seed(seed)
@@ -1489,33 +1705,40 @@ def loop_steps(wrapper, n, seed=SEED):
 
 
 def phase_closed_loop():
-    """6c: the closed loop through rollout.random_actions, eager and
-    scanned (one CUDA graph replay of the whole step per step)."""
+    """6c: the closed loop through rollout.random_actions: eager
+    (graph=False), through the wrapper's CUDA graph (``step``: one replay
+    per step) and scanned (``use_scan=True``: the same graph replayed
+    with no host read between steps)."""
     import torch
     lines, counts4, scan4 = [], None, None
     for B, steps in ((NUM_ENVS, LOOP_STEPS), (1, LOOP_STEPS),
                      (64, LOOP_STEPS_64)):
         t0 = time.perf_counter()
         env, wrapper = bench_build("AlignFr3Env-v1", B, "fr3_align")
-        counts, text, _, eager_ms = timed_loop(wrapper,
-                                               f"closed loop B={B}", steps)
+        counts, text, _, ms = timed_loop(wrapper, f"closed loop B={B}",
+                                         steps)
         scan_ms, scan_text, scan_counts = scanned_loop(
             wrapper, f"scanned loop B={B}", steps)
         cam = env.cameras[0]
         line = (f"phase 6c closed loop, {B} envs x {len(env.cameras)} cams "
-                f"{cam.width}x{cam.height}, {steps} steps: eager {text}; "
-                f"{scan_text}; scanned / eager ms per step "
-                f"{scan_ms / eager_ms:.3f} (built, warmed and run in "
+                f"{cam.width}x{cam.height}, {steps} steps: {text}; "
+                f"{scan_text}; ms per step eager / graph / scanned "
+                f"{ms['eager']:.3f} / {ms['graph']:.3f} / {scan_ms:.3f} "
+                f"(built, warmed and run in "
                 f"{time.perf_counter() - t0:.1f} s)")
         log(line)
         lines.append(line)
         if B == NUM_ENVS:
             counts4, scan4 = counts, scan_counts
             check_frames_follow_state(wrapper)
-            phase_profile("6c", "closed_loop", lambda i: wrapper.step(
-                env.action_space_sample()))
-            line = (f"phase 6c scanned loop, {B} envs: "
-                    + scan_vs_eager(wrapper, "6c scanned loop"))
+            for graph in (False, True):
+                env.graph = graph
+                phase_profile("6c", "closed_loop_"
+                              + ("graph" if graph else "eager"),
+                              lambda i: wrapper.step(
+                                  env.action_space_sample()))
+            line = (f"phase 6c graph vs eager, {B} envs: "
+                    + graph_vs_eager(wrapper, "6c closed loop"))
             log(line)
             lines.append(line)
         del env, wrapper
@@ -1557,7 +1780,9 @@ def check_frames_follow_state(wrapper):
 def phase_ee_modes():
     """6d: AlignFr3Env-v1 at 4 envs in both end-effector modes (IK inside
     the captured step): eager and graph steps, graph vs eager bit for bit
-    (every WorldState field and prev_target), one step card vs CPU."""
+    (everything the step returns, every state field), one step card vs
+    CPU; the closed loop in pd_ee_delta_pose through the wrapper's graph
+    against graph=False (``graph_vs_eager``)."""
     import torch
     from gsworld_tpu_torch.physics.world import (world_state_from_numpy,
                                                   world_state_to_numpy)
@@ -1565,7 +1790,7 @@ def phase_ee_modes():
     for mode in EE_MODES:
         res = {g: physics_steps(NUM_ENVS, g, control_mode=mode)
                for g in (False, True)}
-        if res[True][0]._physics_graph is None:
+        if res[True][0]._step_graph is None:
             raise AssertionError(f"{mode}: stepped without a captured graph")
         parts = []
         for graph, name in ((False, "eager"), (True, "graph")):
@@ -1577,29 +1802,13 @@ def phase_ee_modes():
                 + ("kernels per step not measured" if kernels is None
                    else f"{kernels:.0f} kernels per step")
                 + f", peak memory {peak / 2**30:.3f} GiB")
-        eager = make_env(NUM_ENVS, "cuda", False, control_mode=mode)
-        graphed = make_env(NUM_ENVS, "cuda", True, control_mode=mode)
-        actions = seeded_actions(eager, GRAPH_STEPS, seed=SEED + 7)
-        eager.reset(seed=SEED + 3)
-        graphed.reset(seed=SEED + 3)
-        for i, a in enumerate(actions):
-            eager.step(a)
-            graphed.step(a)
-            d = world_diff(eager.state.world, graphed.state.world)
-            bad = {f: v[1] for f, v in d.items() if not v[0]}
-            if not torch.equal(eager.state.prev_target,
-                               graphed.state.prev_target):
-                bad["prev_target"] = float((eager.state.prev_target
-                                            - graphed.state.prev_target)
-                                           .abs().max())
-            if bad:
-                raise AssertionError(f"{mode}: graph and eager differ at "
-                                     f"step {i + 1}: {bad}")
+        eager, _, actions = env_graph_vs_eager(NUM_ENVS, f"6d {mode}",
+                                               control_mode=mode)
         cpu_env = make_env(NUM_ENVS, "cpu", False, control_mode=mode)
         start = world_state_to_numpy(eager.state.world)
-        w_card, t_card = eager._physics_eager(
+        w_card, t_card = eager._physics(
             eager.state.world, eager.state.prev_target, actions[0])
-        w_cpu, t_cpu = cpu_env._physics_eager(
+        w_cpu, t_cpu = cpu_env._physics(
             world_state_from_numpy(start, device="cpu"),
             eager.state.prev_target.cpu(), actions[0].cpu())
         d = {f: v[1] for f, v in world_diff(w_card, w_cpu).items()}
@@ -1612,12 +1821,24 @@ def phase_ee_modes():
         line = (f"phase 6d EE mode {mode}, AlignFr3Env-v1, {NUM_ENVS} envs "
                 f"(12 IK steps inside the step): " + "; ".join(parts)
                 + f"; graph vs eager {GRAPH_STEPS} steps bit for bit in "
-                f"every WorldState field and prev_target; card vs CPU one "
+                f"every tensor each step returns and every state field "
+                f"(WorldState, prev_target, task), step k's outputs "
+                f"unchanged after step k + 1; card vs CPU one "
                 f"step: targets {tgt_err:.3g}, qpos/a_pos "
                 f"{max(d['qpos'], d['a_pos']):.3g} (<= {PHYS_POS_TOL}), "
                 f"velocities {vel_err:.3g} (<= {PHYS_VEL_TOL})")
         log(line)
         lines.append(line)
+    # the closed loop in an EE mode: the wrapper's graph holds the IK
+    env, wrapper = bench_build("AlignFr3Env-v1", NUM_ENVS, "fr3_align",
+                               control_mode=EE_MODES[-1])
+    line = (f"phase 6d EE mode {EE_MODES[-1]} closed loop, {NUM_ENVS} envs "
+            f"x {len(env.cameras)} cams 640x480: "
+            + graph_vs_eager(wrapper, f"6d {EE_MODES[-1]} closed loop"))
+    log(line)
+    lines.append(line)
+    del env, wrapper
+    torch.cuda.empty_cache()
     return lines
 
 
@@ -1691,7 +1912,7 @@ def phase_tasks():
                 raise AssertionError(f"{env_id}: task state {k} card "
                                      f"{c.tolist()} CPU {v.tolist()}")
             task[k] = err
-        if card._physics_graph is None:
+        if card._step_graph is None:
             raise AssertionError(f"{env_id}: no captured graph on the card")
         line = (f"phase 6d task {env_id}, {NUM_ENVS} envs: reset(seed) card "
                 f"== CPU bit for bit (a_pos, a_quat, qpos, root_pos); after "
@@ -1711,20 +1932,23 @@ def phase_xarm_loop():
     t0 = time.perf_counter()
     env, wrapper = bench_build("AlignXArmEnv-v1", NUM_ENVS, "xarm6_align",
                                domain_randomization=True)
-    counts, text, _, _ = timed_loop(wrapper, "xArm loop")
+    counts, text, _, ms = timed_loop(wrapper, "xArm loop")
     if set(env.state.task) != {"obj_color", "cam_pose_noise"}:
         raise AssertionError(f"xArm loop: task state {set(env.state.task)}")
-    _, scan_text, _ = scanned_loop(wrapper, "xArm scanned loop", LOOP_STEPS)
+    scan_ms, scan_text, _ = scanned_loop(wrapper, "xArm scanned loop",
+                                         LOOP_STEPS)
     cam = env.cameras[0]
     line = (f"phase 6d xArm closed loop, AlignXArmEnv-v1 with domain "
             f"randomization, {NUM_ENVS} envs x {len(env.cameras)} cams "
             f"{cam.width}x{cam.height}, {wrapper.renderer.scene.num_gaussians}"
-            f" Gaussians, {LOOP_STEPS} steps: eager {text}; {scan_text} "
-            f"(built, warmed and run in {time.perf_counter() - t0:.1f} s)")
+            f" Gaussians, {LOOP_STEPS} steps: {text}; {scan_text}; ms per "
+            f"step eager / graph / scanned {ms['eager']:.3f} / "
+            f"{ms['graph']:.3f} / {scan_ms:.3f} (built, warmed and run in "
+            f"{time.perf_counter() - t0:.1f} s)")
     log(line)
-    scan_line = ("phase 6d xArm scanned loop (tint and camera noise inside "
-                 "the graph): " + scan_vs_eager(wrapper, "6d xArm scanned "
-                                                "loop", tint=True))
+    scan_line = ("phase 6d xArm graph vs eager (tint and camera noise "
+                 "inside the graph): " + graph_vs_eager(
+                     wrapper, "6d xArm closed loop", tint=True))
     log(scan_line)
     return counts, [line, scan_line], wrapper
 
@@ -1832,11 +2056,17 @@ def frames_of(obs):
 
 def timed_loop(wrapper, what, steps=None):
     """rollout_fps over ``steps`` closed-loop steps (LOOP_STEPS unless
-    given), with the launch counts and peak memory of its timed window:
-    one emit and one compositor launch per step, frames of the cameras'
-    shape, a finite state; then up to 10 further steps split by CUDA
-    events, whose observation is checked -> (launch counts, text for the
-    phase's line, the last observation, ms per step)."""
+    given; at most EAGER_STEPS eager), first eager (``graph=False``: one
+    emit and one compositor launch per step on the launch counters),
+    then through the wrapper's
+    CUDA graph (the env's ``graph=True``: the capture in the warm-up, one
+    replay per step, no counter moves in the timed steps, and the
+    profiler counts one emit and one compositor kernel per replay), each
+    with its peak memory; frames of the cameras' shape, a finite state;
+    then up to 10 further steps of the eager step's two parts (a replay
+    cannot be split) timed by CUDA events, whose observation is checked
+    -> (launch counts of the eager run, text for the phase's line, the
+    last observation, {"eager": ms per step, "graph": ms per step})."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.rollout.random_actions import rollout_fps
@@ -1850,55 +2080,94 @@ def timed_loop(wrapper, what, steps=None):
         torch.cuda.reset_peak_memory_stats()
         rc.reset_launch_counts()
 
-    fps, spf, frames = rollout_fps(wrapper, steps, seed=SEED, warmup=2,
-                                   on_timed_start=timed_start)
-    counts = dict(rc.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    reserved = torch.cuda.max_memory_reserved()
-    for name in ("emit_entries", "composite_tiles"):
-        if counts[name] != steps:
-            raise AssertionError(f"{what}: kernel {name} launched "
-                                 f"{counts[name]} times in {steps} steps")
-    if frames.shape != (B, cam.height, cam.width, 3) \
-            or frames.dtype.name != "uint8":
-        raise AssertionError(f"{what}: frames {frames.shape} "
-                             f"{frames.dtype}")
+    runs, graph0 = {}, env.graph
+    for graph in (False, True):
+        env.graph = graph
+        n = steps if graph else min(steps, EAGER_STEPS)
+        fps, spf, frames = rollout_fps(wrapper, n, seed=SEED, warmup=2,
+                                       on_timed_start=timed_start)
+        counts = dict(rc.launch_counts)
+        for name in ("emit_entries", "composite_tiles"):
+            if counts[name] != (0 if graph else n):
+                raise AssertionError(
+                    f"{what} ({'graph' if graph else 'eager'}): kernel "
+                    f"{name} launched {counts[name]} times from the host in "
+                    f"{n} steps")
+        if frames.shape != (B, cam.height, cam.width, 3) \
+                or frames.dtype.name != "uint8":
+            raise AssertionError(f"{what}: frames {frames.shape} "
+                                 f"{frames.dtype}")
+        runs[graph] = (fps, 1000.0 * spf, counts,
+                       torch.cuda.max_memory_allocated(),
+                       torch.cuda.max_memory_reserved())
     check_finite(env.state.world, what)
     overflow = int(wrapper.renderer.last_overflow.sum())
+    prof_text = step_kernels(wrapper, what)
+    env.graph = graph0
     n = min(steps, 10)
     phys_ms, rend_ms, obs = loop_steps(wrapper, n)
     check_outputs(obs["sensor_data"], B, cam.height, cam.width,
                   ids_per_camera=False)
-    text = (f"{fps:.2f} env-steps/s, {1000.0 * spf:.3f} ms per step (host "
-            f"clock, ended by a synchronize and a host read); by CUDA "
-            f"events physics + observation {phys_ms:.3f} ms, render "
-            f"{rend_ms:.3f} ms (medians of {n} further steps); overflow "
-            f"{overflow} entries in the last step, peak memory "
-            f"{peak / 2**30:.3f} GiB allocated ({reserved / 2**30:.3f} "
-            f"reserved), launches {counts} in the {steps} timed steps")
-    return counts, text, obs, 1000.0 * spf
+    parts = [f"{name} {fps:.2f} env-steps/s, {ms:.3f} ms per step, peak "
+             f"memory {peak / 2**30:.3f} GiB allocated "
+             f"({reserved / 2**30:.3f} reserved)"
+             for name, (fps, ms, _, peak, reserved) in (
+                 ("eager (graph=False)", runs[False]),
+                 ("graph (one replay per step)", runs[True]))]
+    text = ("; ".join(parts)
+            + f" (host clock over {min(steps, EAGER_STEPS)} eager and "
+            f"{steps} graph steps, each run ended by a synchronize and a "
+            f"host read); graph / eager "
+            f"{runs[True][1] / runs[False][1]:.3f}; launches "
+            f"{runs[False][2]} in the eager steps, none in the "
+            f"graph's; {prof_text}; eager step by CUDA events physics + "
+            f"observation {phys_ms:.3f} ms, render {rend_ms:.3f} ms "
+            f"(medians of {n} further steps); overflow {overflow} entries "
+            f"in the last step")
+    return runs[False][2], text, obs, {"eager": runs[False][1],
+                                       "graph": runs[True][1]}
 
 
-def scan_kernels(wrapper, what):
-    """torch.profiler over SCAN_PROFILE_STEPS scanned steps
-    (``scan_steps``: one graph replay per step): exactly one emit and one
-    compositor kernel per replay by the kernels' names, and no copy from
-    the device to the host before the last step's end -> (text, emit
-    kernels per replay).  The launch counters do not see replays."""
+def replay_kernels(run, calls, what, names=("emit_kernel",
+                                            "composite_kernel"),
+                   per_call=1, d2h=0, check=None):
+    """torch.profiler over ``run()``, which makes ``calls`` calls that
+    replay CUDA graphs (scanned steps, steps, sharded steps): exactly
+    ``per_call`` kernels of each of ``names`` per call by the kernels'
+    names, and ``d2h`` copies from the device to the host in all; a
+    window that shows another count raises.  The launch counters do not
+    see replays.  ``check(out)``, when given, holds what the replays
+    returned against eager steps -> (equal, text): unequal raises, and a
+    wrong count's error says whether the outputs were right (the
+    profiler lost a kernel's record) or not (a replay did not run).  The
+    window keeps PROFILE_MARGIN_S of host idle time at each edge, so that
+    no kernel lies near an edge (the profiler keeps only what lies inside
+    its window) -> (text, what ``run`` returned, {name: kernels per
+    call})."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from gsworld_tpu_torch.rollout.random_actions import scan_steps
-    env, n = wrapper.env, SCAN_PROFILE_STEPS
-    acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 13),
-                                   steps=n)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
-        frames = scan_steps(wrapper, acts)
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
+    equal, check_text = check(out) if check else (True, None)
+    text, per = window_kernels(prof, calls, what, names, per_call, d2h,
+                               wall, check_text)
+    if not equal:
+        raise AssertionError(f"{what}: {check_text}")
+    return text, out, per
+
+
+def window_kernels(prof, calls, what, names, per_call, d2h, wall,
+                   note=None):
+    """The gate and line of a profiler window over ``calls`` graph
+    replays (``replay_kernels``) -> (text, {name: kernels per call})."""
+    from torch.autograd import DeviceType
     kern = {e.key: (e.count, e.self_device_time_total)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
@@ -1907,40 +2176,167 @@ def scan_kernels(wrapper, what):
     def count(word):
         return sum(c for k, (c, _) in kern.items() if word in k)
 
-    emit, comp, d2h = count("emit_kernel"), count("composite_kernel"), \
-        count("DtoH")
-    if emit != n or comp != n or d2h:
-        raise AssertionError(f"{what}: {n} scanned steps ran {emit} emit and "
-                             f"{comp} compositor kernels, {d2h} copies to "
-                             f"the host")
-    if frames.shape[0] != n:
-        raise AssertionError(f"{what}: scanned frames {tuple(frames.shape)}")
+    got = {w: count(w) for w in names}
+    copies = count("DtoH")
+    if any(v != per_call * calls for v in got.values()) or copies != d2h:
+        raise AssertionError(f"{what}: {calls} calls ran kernels {got} "
+                             f"(want {per_call} of each per call) and "
+                             f"{copies} copies to the host (want {d2h})"
+                             + (f"; {note}" if note else ""))
     busy = sum(t for _, t in kern.values()) / 1e3            # ms
-    text = (f"profiler over {n} scanned steps: {emit // n} emit and "
-            f"{comp // n} compositor kernel per replay (kernel names), "
-            f"{sum(c for c, _ in kern.values()) // n} kernels per step, no "
-            f"copy to the host, kernels {busy / n:.3f} ms per step in "
-            f"{1e3 * wall / n:.3f} ms (profiler on; device busy "
-            f"{100 * busy / (1e3 * wall):.1f}%)")
-    return text, emit // n
+    text = (f"profiler over {calls} {what}: "
+            + ", ".join(f"{v // calls} {k}" for k, v in got.items())
+            + f" per call (kernel names), "
+            f"{sum(c for c, _ in kern.values()) // calls} kernels per call, "
+            f"{copies} copies to the host, kernels {busy / calls:.3f} ms per "
+            f"call in {1e3 * wall / calls:.3f} ms (profiler on; device "
+            f"busy {100 * busy / (1e3 * wall):.1f}%)"
+            + (f"; {note}" if note else ""))
+    return text, {k: v // calls for k, v in got.items()}
+
+
+def uncounted(fn):
+    """``fn()`` with the launch counters left as they were: launches made
+    to check a result are not the path's."""
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    saved = dict(rc.launch_counts)
+    try:
+        return fn()
+    finally:
+        rc.launch_counts.update(saved)
+
+
+def scan_kernels(wrapper, what):
+    """The profiler over SCAN_PROFILE_STEPS scanned steps (``scan_steps``:
+    one graph replay per step): one emit and one compositor kernel per
+    replay, no copy to the host before the last step's end, and the
+    window's frames bit for bit the same steps run eagerly
+    (``_step_and_render`` from the window's start state) -> (text, emit
+    kernels per replay as the profiler counted them)."""
+    import torch
+    from gsworld_tpu_torch.envs.base import _clone_state
+    from gsworld_tpu_torch.rollout.random_actions import scan_steps
+    env, n = wrapper.env, SCAN_PROFILE_STEPS
+    cam = env.cameras[0].name
+    acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 13),
+                                   steps=n)
+    start = _clone_state(env.state)
+
+    def eager_frames():
+        s, frames = _clone_state(start), []
+        for a in acts:
+            s, obs, *_ = wrapper._step_and_render(s, a)
+            frames.append(obs["sensor_data"][cam]["rgb"][0])
+        return torch.stack(frames)
+
+    def check(out):
+        want = uncounted(eager_frames)
+        equal = out[0].shape == want.shape and torch.equal(out[0], want)
+        return equal, ("the window's frames bit for bit the same steps run "
+                       "eagerly" if equal else "the window's frames differ "
+                       "from the same steps run eagerly")
+
+    text, out, per = replay_kernels(lambda: scan_steps(wrapper, acts), n,
+                                    f"scanned steps ({what})", check=check)
+    if out[0].shape[0] != n or out[1].shape != (n,):
+        raise AssertionError(f"{what}: scanned frames "
+                             f"{tuple(out[0].shape)}, means "
+                             f"{tuple(out[1].shape)}")
+    return text, per["emit_kernel"]
+
+
+def step_kernels(wrapper, what, n=SCAN_PROFILE_STEPS):
+    """The profiler over ``n`` ``wrapper.step`` calls through the
+    wrapper's CUDA graph: one emit and one compositor kernel per step, no
+    copy to the host; the env's state is restored after them -> text."""
+    import torch
+    from gsworld_tpu_torch.envs.base import _clone_state
+    env = wrapper.env
+    if not env._graphed():
+        raise AssertionError(f"{what}: the env does not step through a "
+                             f"graph")
+    acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 19),
+                                   steps=n)
+    saved = _clone_state(env.state)
+    text, _, _ = replay_kernels(lambda: [wrapper.step(a) for a in acts], n,
+                                f"steps through the graph ({what})")
+    env._state = saved
+    return text
+
+
+def step_leaves(out):
+    """{path: tensor} of every tensor a step returned (obs, reward,
+    terminated, truncated, info)."""
+    return dict(obs_leaves(dict(zip(
+        ("obs", "reward", "terminated", "truncated", "info"),
+        (out[0], {"": out[1]}, {"": out[2]}, {"": out[3]}, out[4])))))
+
+
+def leaves_differ(a, b):
+    """Paths of two {path: tensor} maps whose tensors are not equal bit
+    for bit (or that only one has)."""
+    import torch
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b
+                  or not torch.equal(a[k], b[k].to(a[k].device)))
+
+
+def state_differ(a, b):
+    """Paths of two EnvStates' tensors that are not equal bit for bit."""
+    from gsworld_tpu_torch.envs.base import _state_tensors
+    return leaves_differ(dict(_state_tensors(a)), dict(_state_tensors(b)))
+
+
+def graph_steps_vs_eager(step_g, step_e, actions, what, state_g, state_e):
+    """``step_g(a)`` (through a graph) against ``step_e(a)`` (eager) over
+    ``actions`` from one state: every tensor the steps return and every
+    tensor of the states (``state_g()``, ``state_e()``) bit for bit after
+    every step, and what step k returned unchanged after step k + 1 ->
+    (host ms per step of each, steps 2 on, each ended by a synchronize).
+    Raises on the first step that differs."""
+    import torch
+    ms_g, ms_e, prev = [], [], None
+    for i, a in enumerate(actions):
+        t_e, out_e = step_ms(lambda: step_e(a))
+        t_g, out_g = step_ms(lambda: step_g(a))
+        if i:
+            ms_e.append(t_e)
+            ms_g.append(t_g)
+        bad = []
+        if prev is not None:
+            bad += [f"step {i}'s {k} changed by step {i + 1}"
+                    for k in leaves_differ(step_leaves(prev[0]), prev[1])]
+        bad += [f"step {i + 1} {k}" for k in leaves_differ(
+            step_leaves(out_g), step_leaves(out_e))]
+        bad += [f"state after step {i + 1}: {k}"
+                for k in state_differ(state_g(), state_e())]
+        if bad:
+            raise AssertionError(f"{what}: graph and eager differ: "
+                                 f"{bad[:8]} ({len(bad)} in all)")
+        prev = (out_g, {k: v.clone()
+                        for k, v in step_leaves(out_g).items()})
+    torch.cuda.synchronize()
+    return statistics.median(ms_g), statistics.median(ms_e)
 
 
 def scanned_loop(wrapper, what, steps):
-    """rollout_fps(use_scan=True) over ``steps`` steps (the capture in its
-    warm-up): the frames' contract; the launch counters before the timed
-    reps (the reset's render, the capture's warm-up steps and the capture
-    itself) and in them (none: a replay moves no counter); peak memory of
-    the timed reps; the profiler's kernels per replay -> (ms per step,
-    text, launches before the timed reps and kernels per replay)."""
+    """rollout_fps(use_scan=True) over ``steps`` steps (its warm-up is one
+    whole scan of ``steps`` steps, with the capture in its first step,
+    unless ``step`` captured already): the frames' contract; the launch
+    counters before the timed reps (the reset's render, the capture's
+    warm-up steps and the capture itself) and in them (none: a replay
+    moves no counter); peak memory of the timed reps; the profiler's
+    kernels per replay -> (ms per step, text, launches before the timed
+    reps and kernels per replay)."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.rollout.random_actions import (SCAN_REPS,
                                                           rollout_fps)
-    from gsworld_tpu_torch.wrapper.gs_env import _StepGraph
+    from gsworld_tpu_torch.envs.base import StepGraph
     env = wrapper.env
     cam = env.cameras[0]
     want = 1 + (0 if wrapper._step_graph is not None
-                else _StepGraph.WARMUP + 1)
+                else StepGraph.WARMUP + 1)
     before = {}
 
     def timed_start():
@@ -1975,49 +2371,75 @@ def scanned_loop(wrapper, what, steps):
     return 1000.0 * spf, text, dict(before, per_replay=per_replay)
 
 
-def scan_vs_eager(wrapper, what, tint=False):
-    """SCAN_CHECK_STEPS replays of the wrapper's step graph against as
-    many eager ``wrapper.step`` from the same reset(SEED) with the same
-    actions: every env's and camera's rgb and segmentation at every step,
-    every WorldState field, prev_target and the task state bit for bit;
-    ``scan_steps``'s frames are the eager env 0's first camera; then emit
-    and the compositor against their plain versions on the frames of the
-    state after one scanned step (tinted by its task's colours with
-    ``tint``) -> text."""
+def wrapper_graph_vs_eager(wrapper, actions, what):
+    """``wrapper.step`` through its CUDA graph against ``wrapper.step``
+    with ``graph=False``, interleaved from the env's state with
+    ``actions`` (``graph_steps_vs_eager``); the env is left at the graph
+    run's state -> (graph ms, eager ms per step, the eager steps'
+    outputs, the eager run's last state)."""
+    from gsworld_tpu_torch.envs.base import _clone_state
+    env = wrapper.env
+    graph0 = env.graph
+    states = {False: _clone_state(env.state), True: env.state}
+    eager = []
+
+    def step(graph, a):
+        env.graph = graph
+        env._state = states[graph]
+        out = wrapper.step(a)
+        states[graph] = env._state
+        if not graph:
+            eager.append(out)
+        return out
+
+    try:
+        ms_g, ms_e = graph_steps_vs_eager(
+            lambda a: step(True, a), lambda a: step(False, a), actions,
+            what, lambda: states[True], lambda: states[False])
+    finally:
+        env.graph = graph0
+        env._state = states[True]
+    return ms_g, ms_e, eager, states[False]
+
+
+def graph_vs_eager(wrapper, what, tint=False):
+    """``wrapper.step`` through its CUDA graph against ``wrapper.step``
+    with ``graph=False``, interleaved from one reset(SEED) state with the
+    same SCAN_CHECK_STEPS actions (``graph_steps_vs_eager``: every tensor
+    each step returns, every WorldState field, prev_target and the task
+    state bit for bit, step k's observation unchanged after step k + 1);
+    the scanned loop's replays (``step_graph``) and ``scan_steps``'
+    frames against the same eager steps; then emit and the compositor
+    against their plain versions on the frames of the state after one
+    graph step (tinted by its task's colours with ``tint``) -> text."""
     import torch
+    from gsworld_tpu_torch.envs.base import _clone_state
     from gsworld_tpu_torch.rollout.random_actions import scan_steps
-    from gsworld_tpu_torch.wrapper.gs_env import _clone_state, world_poses
+    from gsworld_tpu_torch.wrapper.gs_env import world_poses
     env, n = wrapper.env, SCAN_CHECK_STEPS
     acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 17),
                                    steps=n)
     wrapper.reset(seed=SEED)
     s0 = _clone_state(env.state)
-    eager = []
-    for a in acts:
-        obs, *_ = wrapper.step(a)
-        eager.append(obs["sensor_data"])
-    s_eager = env.state
+    ms_g, ms_e, eager, s_eager = wrapper_graph_vs_eager(wrapper, acts, what)
     g = wrapper.step_graph(acts[0])
     g.load(s0)
     bad = []
     for i, a in enumerate(acts):
         g.replay(a)
         for c, d in g.obs["sensor_data"].items():
-            for k, v in d.items():
-                if not torch.equal(v, eager[i][c][k]):
-                    bad.append(f"step {i + 1} {c} {k}")
-    s_scan = g.state_clone()
-    bad += [f"world.{f}" for f, (eq, _) in world_diff(
-        s_scan.world, s_eager.world).items() if not eq]
-    if not torch.equal(s_scan.prev_target, s_eager.prev_target):
-        bad.append("prev_target")
-    bad += [f"task.{k}" for k in s_eager.task
-            if not torch.equal(s_scan.task[k], s_eager.task[k])]
+            bad += [f"replay {i + 1} {c} {k}" for k, v in d.items()
+                    if not torch.equal(v, eager[i][0]["sensor_data"][c][k])]
+    bad += [f"replays: {k}" for k in state_differ(g.state_clone(),
+                                                  s_eager)]
     cam = env.cameras[0].name
-    frames = scan_steps(wrapper, acts, state=_clone_state(s0))
-    if not torch.equal(frames, torch.stack([e[cam]["rgb"][0]
-                                            for e in eager])):
+    frames, means = scan_steps(wrapper, acts, state=_clone_state(s0))
+    rgbs = [e[0]["sensor_data"][cam]["rgb"] for e in eager]
+    if not torch.equal(frames, torch.stack([r[0] for r in rgbs])):
         bad.append("scan_steps frames")
+    if not torch.equal(means, torch.stack(
+            [r.sum(dtype=torch.float64) / r.numel() for r in rgbs]).float()):
+        bad.append("scan_steps means")
     if bad:
         raise AssertionError(f"{what}: scanned and eager differ: {bad[:8]} "
                              f"({len(bad)} fields)")
@@ -2028,12 +2450,18 @@ def scan_vs_eager(wrapper, what, tint=False):
     phase_kernels(wrapper.renderer, poses, phase="6c" if not tint else "6d",
                   tint=(wrapper.renderer.color_tint(poses.obj_color)
                         if tint else None), timed=False)
-    return (f"scanned vs eager {n} steps from reset({SEED}), the same "
-            f"actions: every env's and camera's rgb and segmentation at "
-            f"every step, every WorldState field, prev_target and the task "
-            f"state bit for bit, scan_steps' frames the eager env 0's; emit "
-            f"and compositor vs plain on a scanned step's frames within "
-            f"phase 3's gates (lines above)")
+    return (f"step through the graph vs graph=False, {n} steps from "
+            f"reset({SEED}), the same actions: every tensor each step "
+            f"returns (every env's and camera's rgb and segmentation, the "
+            f"rest of the observation, reward, flags, info), every "
+            f"WorldState field, prev_target and the task state bit for bit "
+            f"after every step, step k's outputs unchanged after step "
+            f"k + 1; {ms_g:.3f} ms per step through the graph, {ms_e:.3f} "
+            f"eager (host clock, a synchronize per step, median of steps "
+            f"2-{n}); the scanned loop's replays and scan_steps' frames "
+            f"the eager steps' bit for bit; emit and compositor vs plain "
+            f"on a graph step's frames within phase 3's gates (lines "
+            f"above)")
 
 
 def phase_scan_loop(tmp, device="cuda"):
@@ -2216,7 +2644,8 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.render.rasterize import render as gs_render
     from gsworld_tpu_torch.train3dgs.loss import psnr
-    from gsworld_tpu_torch.train3dgs.train import render_trainable
+    from gsworld_tpu_torch.train3dgs.train import (TrainStepGraph,
+                                                   render_trainable)
     from gsworld_tpu_torch.wrapper.gs_env import world_poses
 
     stages = {}
@@ -2274,10 +2703,14 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
         setup.cfg, params=train_params(), iterations=TRAIN_ITERS,
         capacity=setup.capacity, seed=SEED, device=device)
     train_counts = dict(rc.launch_counts)
-    if train_counts["composite_bwd"] != TRAIN_ITERS:
+    # one graph per train call: the warm-up steps and the capture launch
+    # from the host, the TRAIN_ITERS replays do not (phase 5 counts the
+    # backward kernel once per replay by the profiler)
+    if train_counts["composite_bwd"] != TrainStepGraph.WARMUP + 1:
         raise AssertionError(f"7b train: composite_bwd launched "
-                             f"{train_counts['composite_bwd']} times in "
-                             f"{TRAIN_ITERS} iterations")
+                             f"{train_counts['composite_bwd']} times from "
+                             f"the host in {TRAIN_ITERS} iterations (want "
+                             f"{TrainStepGraph.WARMUP + 1}: one capture)")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("7b train: a loss is not finite")
     bad = {f: int((~torch.isfinite(getattr(scan, f))).reshape(
@@ -2588,6 +3021,7 @@ def collect_task(env_id, cfg_name, out_dir):
     """8a: one ``run_with_gs.collect`` episode of ``env_id`` at 640x480 x
     2 cameras on the full synthetic scene -> (result dict, wrapper)."""
     import torch
+    from gsworld_tpu_torch.envs.base import StepGraph
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.rollout.run_with_gs import collect
     rc.reset_launch_counts()
@@ -2621,18 +3055,28 @@ def collect_task(env_id, cfg_name, out_dir):
             raise AssertionError(f"8a {env_id}: recorded frames "
                                  f"{None if frames is None else frames.shape}")
     renders = steps + probes.resets
+    # the steps replay the wrapper's graph: the host counters see the
+    # resets' renders and the capture (its warm-up steps and itself)
+    if steps and wrapper._step_graph is None:
+        raise AssertionError(f"8a {env_id}: stepped without the graph")
+    captured = probes.resets + (StepGraph.WARMUP + 1 if steps else 0)
     for name in ("emit_entries", "composite_tiles"):
-        if counts[name] != renders:
+        if counts[name] != captured:
             raise AssertionError(f"8a {env_id}: {name} launched "
-                                 f"{counts[name]} times for {renders} "
-                                 f"renders ({steps} steps, {probes.resets} "
-                                 f"resets)")
+                                 f"{counts[name]} times from the host for "
+                                 f"{probes.resets} resets and {steps} steps "
+                                 f"through the graph (want {captured})")
+    prof_text = step_kernels(wrapper, f"8a {env_id}")
+    acts = wrapper.env.action_space_sample(
+        torch.Generator().manual_seed(SEED + 23), steps=DEMO_CHECK_STEPS)
+    ms_g, ms_e, _, _ = wrapper_graph_vs_eager(wrapper, acts,
+                                              f"8a {env_id}")
     res = dict(env_id=env_id, plan_ok=plan_ok, success=success, steps=steps,
                seconds=seconds, step_ms=s["step"]["mean_ms"],
                step_p50_ms=s["step"]["p50_ms"], ik_calls=ik["count"],
                ik_ms=ik["mean_ms"], ik_p50_ms=ik["p50_ms"],
                overflow=probes.overflow, counts=counts, renders=renders,
-               frames=frames,
+               frames=frames, graph_ms=ms_g, eager_ms=ms_e,
                h5=os.path.join(out_dir, "trajectory.h5"))
     cam = wrapper.env.cameras[0]
     line = (f"phase 8a demo {env_id} ({cfg_name}), 1 env x "
@@ -2645,10 +3089,13 @@ def collect_task(env_id, cfg_name, out_dir):
             f"record, to a synchronize); IK {res['ik_ms']:.2f} ms per "
             f"waypoint (median {res['ik_p50_ms']:.2f}) over {ik['count']} "
             f"waypoints, {ik['count'] * res['ik_ms'] / 1e3:.1f} s in all; "
-            f"max overflow {probes.overflow} entries per frame; emit "
-            f"{counts['emit_entries'] / renders:g} and compositor "
-            f"{counts['composite_tiles'] / renders:g} launches per rendered "
-            f"step ({renders} renders)")
+            f"max overflow {probes.overflow} entries per frame; host "
+            f"launches {counts} for {probes.resets} resets and the capture; "
+            f"{prof_text}; {DEMO_CHECK_STEPS} more steps from the episode's "
+            f"end, through the graph vs graph=False interleaved, bit for "
+            f"bit in everything they return and the state: {ms_g:.3f} ms "
+            f"per step through the graph, {ms_e:.3f} eager (a synchronize "
+            f"per step, median of steps 2-{DEMO_CHECK_STEPS})")
     log(line)
     return res, line, wrapper
 
@@ -2975,12 +3422,12 @@ def shard_vs_unsharded(env, wrapper, mesh):
         t_u, out_u = step_ms(lambda: wrapper.step(a))
         rc.reset_launch_counts()
         t_s, out_s = step_ms(lambda: loop.step(a))
-        if any(rc.launch_counts[k] != n
-               for k in ("emit_entries", "composite_tiles")):
-            raise AssertionError(f"9a: launches per sharded step "
-                                 f"{rc.launch_counts}, want {n} of emit "
-                                 f"and compositor")
-        if i == 0:           # the first step captures the physics graphs
+        if i and any(rc.launch_counts[k]
+                     for k in ("emit_entries", "composite_tiles")):
+            raise AssertionError(f"9a: host launches in a sharded step "
+                                 f"after the capture {rc.launch_counts}, "
+                                 f"want none (one graph replay per shard)")
+        if i == 0:           # the first step captures the step graphs
             first = (out_u, out_s)
         else:
             ms_u.append(t_u)
@@ -3011,6 +3458,11 @@ def shard_vs_unsharded(env, wrapper, mesh):
     if mean_err > SHARD_MEAN_TOL:
         raise AssertionError(f"9a: mean_across_envs of the reward differs "
                              f"from the unsharded mean by {mean_err:.3g}")
+    # after the comparisons: the window steps the split loop alone
+    a = env.action_space_sample(gen)
+    prof_text, _, _ = replay_kernels(lambda: loop.step(a), 1,
+                                     f"sharded step over {n} shards",
+                                     per_call=n)
     b = NUM_ENVS // n
     line = (f"phase 9a {n} shards on {[str(d) for d in mesh]} "
             f"({' + '.join([str(b)] * n)} envs) vs the unsharded "
@@ -3025,8 +3477,9 @@ def shard_vs_unsharded(env, wrapper, mesh):
                f"{max(d for _, d in wd.values()):.3g}")
             + f" (gate {SHARD_STATE_TOL}); mean_across_envs(reward) - "
             f"unsharded mean {mean_err:.3g} (gate {SHARD_MEAN_TOL}); "
-            f"{n} emit and {n} compositor launches per sharded step; ms per "
-            f"step (host clock, synchronized, median of steps "
+            f"{prof_text}; ms per "
+            f"step through the graphs (host clock, synchronized, median of "
+            f"steps "
             f"2-{SHARD_STEPS}) sharded {statistics.median(ms_s):.3f}, "
             f"unsharded {statistics.median(ms_u):.3f} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -3059,8 +3512,8 @@ def shard_scan_vs_unsharded(env, wrapper, mesh):
     loop.scan_steps(acts[:1])
     wrapper.reset(seed=SEED)
     loop.reset(seed=SEED)
-    t_u, f_u = step_ms(lambda: scan_steps(wrapper, acts))
-    t_s, f_s = step_ms(lambda: loop.scan_steps(acts))
+    t_u, f_u = step_ms(lambda: scan_steps(wrapper, acts)[0])
+    t_s, f_s = step_ms(lambda: loop.scan_steps(acts)[0])
     env0_err = int((f_u.int() - f_s.to(f_u.device).int()).abs().max())
     graphs = [sh._step_graph for sh in loop.shards]
     sd_u = wrapper._step_graph.obs["sensor_data"]
@@ -3124,11 +3577,14 @@ def phase_shard():
                                    shard=True,
                                    on_timed_start=rc.reset_launch_counts)
     counts = dict(rc.launch_counts)
+    # each shard's step replays its wrapper's graph, captured in the
+    # warm-up: no host launch in the timed steps (the profiler counts one
+    # kernel of each per shard and step in the lines below)
     for name in ("emit_entries", "composite_tiles"):
-        if counts[name] != LOOP_STEPS * len(mesh):
+        if counts[name]:
             raise AssertionError(f"9a: {name} launched {counts[name]} times "
-                                 f"in {LOOP_STEPS} steps over {len(mesh)} "
-                                 f"shards")
+                                 f"from the host in {LOOP_STEPS} steps over "
+                                 f"{len(mesh)} shards after the capture")
     cam = env.cameras[0]
     if frames.shape != (NUM_ENVS, cam.height, cam.width, 3):
         raise AssertionError(f"9a: frames {frames.shape}")
@@ -3139,9 +3595,10 @@ def phase_shard():
     lines = [f"phase 9a rollout_fps(shard=True), env_mesh() = "
              f"{[str(d) for d in mesh]}, {NUM_ENVS} envs x "
              f"{len(env.cameras)} cams {cam.width}x{cam.height}, "
-             f"{LOOP_STEPS} steps: {fps:.2f} env-steps/s, "
-             f"{1000.0 * spf:.3f} ms per step (host clock), launches "
-             f"{counts}; scanned (use_scan=True, one graph replay per shard "
+             f"{LOOP_STEPS} steps through each shard's graph: {fps:.2f} "
+             f"env-steps/s, {1000.0 * spf:.3f} ms per step (host clock), "
+             f"host launches {counts}; scanned (use_scan=True, one graph "
+             f"replay per shard "
              f"and step, best of 3 reps) {s_fps:.2f} env-steps/s, "
              f"{1000.0 * s_spf:.3f} ms per step "
              f"({time.perf_counter() - t0:.1f} s)"]
@@ -3248,6 +3705,10 @@ def main(argv=None):
     ap.add_argument("--dist-only", action="store_true",
                     help="run phases 1, 2, 9a and 9b only and print no "
                          "result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phases 1, 2, 5 and 5b only (training through "
+                         "the train step's graph and eagerly) and print no "
+                         "result line")
     ap.add_argument("--loops-only", action="store_true",
                     help="run phases 1, 2, 6c, the xArm loop of 6d and 9a "
                          "only (the closed loops, eager and scanned) and "
@@ -3278,6 +3739,13 @@ def main(argv=None):
         phase_xarm_loop()
         phase_shard()
         return           # a partial run prints no result line
+    if args.train_only:
+        renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
+        setup = TrainSetup(renderer.scene, TRAIN_RASTER, "cuda")
+        del renderer
+        phase_train(setup)
+        phase_small_train()
+        return           # a partial run prints no result line
     t0 = time.perf_counter()
     renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
     states = random_states(renderer.env, STEPS, "cuda")
@@ -3299,7 +3767,8 @@ def main(argv=None):
     counts, slice_line = phase_slice(renderer, states)
     phase_profile(4, "render", lambda i: renderer.render(states[i]))
     phase_small_agreement()
-    train_counts, train_line, psnr5 = phase_train(setup)
+    (train_counts, train_lines, psnr5, eager_train_counts,
+     train_graph) = phase_train(setup)
     phase_small_train()
     del renderer, states, setup
     torch.cuda.empty_cache()
@@ -3322,10 +3791,18 @@ def main(argv=None):
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     # launches: the render path's for its kernels, the training path's for
     # the backward (every path's counts are in the lines below); the
-    # closed loop's launches of the forward kernels ride along
+    # closed loop's launches of the forward kernels ride along.  The train
+    # path replays one CUDA graph per iteration: its host counts are the
+    # capture's (warm-up steps and capture), and the profiler counts one
+    # kernel of each per replay (phase 5's lines)
     for k in kernels:
         k["launches"] = (train_counts if k["name"] == "composite_bwd"
                          else counts)[k["name"]]
+        k["train_graph_launches_at_capture"] = train_counts[k["name"]]
+        k["train_graph_replays"] = train_graph["replays"]
+        k["train_graph_kernels_per_replay"] = train_graph["per_replay"][
+            KERNEL_NAMES[k["name"]]]
+        k["eager_train_launches"] = eager_train_counts[k["name"]]
         k["real2sim_train_launches"] = scans["train"][k["name"]]
         k["demo_loop_launches"] = demo_counts[k["name"]]
         if k["name"] != "composite_bwd":
@@ -3339,7 +3816,8 @@ def main(argv=None):
             k["scan_loop_launches"] = scans["scan_loop"][k["name"]]
             k["real2sim_loop_launches"] = scans["real2sim_loop"][k["name"]]
             k["shard_loop_launches"] = shard_counts[k["name"]]
-    log(train_line)          # repeated here so the end of the log holds them
+    for line in train_lines:  # repeated so the end of the log holds them
+        log(line)
     log(slice_line)
     for line in (physics_lines + loop_lines + ee_lines + xarm_lines
                  + scans["lines"] + demo_lines + shard_lines):

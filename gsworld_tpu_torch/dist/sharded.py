@@ -131,8 +131,9 @@ class ShardedLoop:
         and copied to each shard's device once, then per step each
         shard's actions copied into its graph and its graph replayed, one
         shard after another, each with its device current (one host call
-        per shard and step) -> env 0's first-camera frames (n, H, W, 3)
-        uint8 from shard 0 (``rollout.random_actions.scan_shards``)."""
+        per shard and step) -> (env 0's first-camera frames (n, H, W, 3)
+        uint8 from shard 0, each step's first-camera rgb mean over all
+        envs) (``rollout.random_actions.scan_shards``)."""
         from gsworld_tpu_torch.rollout.random_actions import scan_shards
         if not self._wrapped:
             raise ValueError("the scanned loop renders: split a "

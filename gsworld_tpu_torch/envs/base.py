@@ -17,9 +17,11 @@ copied to the env's device once, so one seed gives one episode on the
 CPU and on the card.  The env's own action generator draws on the CPU as
 well.
 
-On a CUDA device the physics of a step (PD targets + control step) is
-captured once into a CUDA graph and replayed (``graph=True``, the
-default); on the CPU there is nothing to capture and ``graph`` is ignored.
+On a CUDA device ``step`` replays one CUDA graph of the whole step
+(``StepGraph`` of ``_step_fn``: physics, observation, reward), captured
+at the first step (``graph=True``, the default), as the JAX package runs
+its jitted step; ``graph=False`` steps eagerly, and on the CPU there is
+nothing to capture and ``graph`` is ignored.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from gsworld_tpu_torch.physics.world import (
     world_state_from_numpy,
     world_state_to_numpy,
 )
+from gsworld_tpu_torch.utils.cuda_graph import capture
 
 # SAPIEN camera convention -> OpenCV
 SAPIEN2OPENCV = np.array([
@@ -169,49 +172,118 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
                 task={k: v.cpu().numpy() for k, v in state.task.items()})
 
 
-class _PhysicsGraph:
-    """The physics of one env step (targets + control step) captured into
-    a CUDA graph on static input buffers and replayed per step, both with
-    the env's device current (streams belong to the current device)."""
+def _state_tensors(state: EnvState):
+    """(name, tensor) of every tensor of ``state``, in a fixed order."""
+    for f in WORLD_FIELDS:
+        v = getattr(state.world, f)
+        if v is not None:
+            yield f"world.{f}", v
+    yield "elapsed", state.elapsed
+    yield "prev_target", state.prev_target
+    for k in sorted(state.task):
+        yield f"task.{k}", state.task[k]
 
-    WARMUP = 3
 
-    def __init__(self, env: "GsBaseEnv", world: WorldState, prev_target,
-                 action):
-        self.device = env.device
-        self.fields = [f for f in WORLD_FIELDS
-                       if getattr(world, f) is not None]
-        self.world = WorldState(**{
-            f: (getattr(world, f).clone() if f in self.fields else None)
-            for f in WORLD_FIELDS})
-        self.prev_target = prev_target.clone()
+def _clone_state(state: EnvState) -> EnvState:
+    return EnvState(
+        world=state.world.replace(**{
+            f: getattr(state.world, f).clone() for f in WORLD_FIELDS
+            if getattr(state.world, f) is not None}),
+        elapsed=state.elapsed.clone(), prev_target=state.prev_target.clone(),
+        task={k: v.clone() for k, v in state.task.items()})
+
+
+def _copy_state(dst: EnvState, src: EnvState):
+    """Copy ``src``'s tensors into ``dst``'s (the same fields and shapes);
+    a tensor that is ``dst``'s own is left as it is."""
+    dst_t, src_t = list(_state_tensors(dst)), list(_state_tensors(src))
+    if [n for n, _ in dst_t] != [n for n, _ in src_t]:
+        raise ValueError(f"state fields {[n for n, _ in src_t]} differ from "
+                         f"{[n for n, _ in dst_t]}")
+    for (_, d), (_, s) in zip(dst_t, src_t):
+        if s is not d:
+            d.copy_(s)
+
+
+def _clone_tree(x):
+    """``x`` (tensors in nested dicts and tuples) in tensors of its own."""
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_clone_tree(v) for v in x)
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+class StepGraph:
+    """A whole step captured into one CUDA graph, the counterpart of the
+    JAX package's ``_jit_step``: ``step_fn(state, action) -> (state, obs,
+    reward, terminated, truncated, info)``, an env's ``_step_fn`` or a
+    GS wrapper's ``_step_and_render``.
+
+    Static inputs are the EnvState's tensors (``state``) and the (B, A)
+    ``action``.  The captured step ends by copying its new state into
+    ``state``, so one replay is one step and n replays are n steps.
+    Static outputs, overwritten by every replay: ``state``, ``obs``,
+    ``reward``, ``terminated``, ``truncated`` and ``info`` (and, for a
+    wrapper, its renderer's ``last_overflow``).  Calling the graph loads
+    a state, replays it and returns the step's outputs in tensors of
+    their own, as ``step_fn`` would.  Kernels' host launch counts move at
+    capture only.
+
+    Captured by ``utils.cuda_graph.capture`` after WARMUP steps on clones
+    of the state, which fill every lazy cache (a kernel build, the camera
+    constants, the scene tensors) outside the capture and leave the
+    caller's state as it was.  A failed capture raises: nothing falls back
+    to the eager step."""
+
+    WARMUP = 2
+
+    def __init__(self, step_fn, device, state: EnvState, action,
+                 what: str = "the step"):
+        self.device = device
+        self.state = _clone_state(state)
         self.action = action.clone()
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(self.WARMUP):
-                    env._physics_eager(self.world, self.prev_target,
-                                       self.action)
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            # the capture stream is named: torch.cuda.graph's default one
-            # is made once per process, on the device current then
-            with torch.cuda.graph(self.graph, stream=side):
-                self.out_world, self.out_target = env._physics_eager(
-                    self.world, self.prev_target, self.action)
 
-    def __call__(self, world: WorldState, prev_target, action):
-        for f in self.fields:
-            getattr(self.world, f).copy_(getattr(world, f))
-        self.prev_target.copy_(prev_target)
-        self.action.copy_(action)
+        def warm():
+            s = _clone_state(state)
+            for _ in range(self.WARMUP):
+                s = step_fn(s, self.action)[0]
+
+        def body():
+            out = step_fn(self.state, self.action)
+            _copy_state(self.state, out[0])
+            return out
+
+        with torch.no_grad():
+            self.graph, out = capture(body, warm, device, what)
+        (_, self.obs, self.reward, self.terminated, self.truncated,
+         self.info) = out
+
+    def load(self, state: EnvState):
+        """Make ``state`` the state the next replay steps from."""
         with torch.cuda.device(self.device):
+            _copy_state(self.state, state)
+
+    def replay(self, action):
+        """One step of the loaded state with ``action`` (B, A)."""
+        with torch.cuda.device(self.device):
+            self.action.copy_(action)
             self.graph.replay()
-        out = WorldState(**{
-            f: (getattr(self.out_world, f).clone() if f in self.fields
-                else None) for f in WORLD_FIELDS})
-        return out, self.out_target.clone()
+
+    def state_clone(self) -> EnvState:
+        """The state after the last replay, in tensors of its own."""
+        with torch.cuda.device(self.device):
+            return _clone_state(self.state)
+
+    def __call__(self, state: EnvState, action):
+        """One step of ``state`` -> (state, obs, reward, terminated,
+        truncated, info), each in tensors of its own, as ``step_fn``."""
+        self.load(state)
+        self.replay(action)
+        with torch.cuda.device(self.device):
+            return (_clone_state(self.state), *_clone_tree(
+                (self.obs, self.reward, self.terminated, self.truncated,
+                 self.info)))
 
 
 class GsBaseEnv:
@@ -275,7 +347,7 @@ class GsBaseEnv:
         self.human_render_cameras: List[CameraSpec] = list(
             self._default_human_render_camera_configs())
         self._cam_consts: Dict[Any, Any] = {}
-        self._physics_graph: Optional[_PhysicsGraph] = None
+        self._step_graph: Optional[StepGraph] = None
         self._state: Optional[EnvState] = None
         self._action_gen: Optional[torch.Generator] = None
 
@@ -441,32 +513,18 @@ class GsBaseEnv:
                          task={k: v.to(dev) for k, v in task.items()})
         return state, self._observations(state, self._env_data(state))[0]
 
-    def _physics_eager(self, world: WorldState, prev_target, action):
-        """PD targets of ``action`` and one control step: the part of a
-        step that a CUDA graph captures."""
+    def _physics(self, world: WorldState, prev_target, action):
+        """PD targets of ``action`` and one control step."""
         target = self.controller.compute_targets(
             world.qpos, prev_target, action,
             root_pos=world.root_pos, root_quat=world.root_quat)
         return control_step(self.scene, world, target), target
 
-    def _physics(self, world: WorldState, prev_target, action,
-                 physics_graph: bool = True):
-        if not (physics_graph and self.graph and world.qpos.is_cuda):
-            return self._physics_eager(world, prev_target, action)
-        if self._physics_graph is None:
-            self._physics_graph = _PhysicsGraph(self, world, prev_target,
-                                                action)
-        return self._physics_graph(world, prev_target, action)
-
     @torch.no_grad()
-    def _step_fn(self, state: EnvState, action, physics_graph: bool = True):
+    def _step_fn(self, state: EnvState, action):
         """One step of ``state`` -> (state, obs, reward, terminated,
-        truncated, info).  ``physics_graph=False`` runs the physics
-        eagerly even where the env replays its physics graph: a step being
-        captured into another CUDA graph (the wrapper's ``_StepGraph``)
-        cannot replay one."""
-        world, target = self._physics(state.world, state.prev_target, action,
-                                      physics_graph)
+        truncated, info)."""
+        world, target = self._physics(state.world, state.prev_target, action)
         elapsed = state.elapsed + 1
         state = EnvState(world=world, elapsed=elapsed, prev_target=target,
                          task=state.task)
@@ -532,11 +590,16 @@ class GsBaseEnv:
     def camera_extrinsics_cv(self, poses, cameras=None, link_pose=None,
                              cam_pose_noise=None) -> torch.Tensor:
         """(B, n_cams, 4, 4) OpenCV world->cam extrinsics from FK.
-        ``poses`` is an EnvPoses or a WorldState; ``link_pose`` =
-        (link_pos, link_quat) when FK already ran.  The sensor cameras'
-        poses are perturbed by ``cam_pose_noise`` (B, C, 6) (default: the
+        ``poses`` is an EnvState (as the JAX package's takes it), an
+        EnvPoses or a WorldState; ``link_pose`` = (link_pos, link_quat)
+        when FK already ran.  The sensor cameras' poses are perturbed by
+        ``cam_pose_noise`` (B, C, 6) (default: the EnvState's task's or the
         EnvPoses' own), pose @ T(noise[:, min(i, C - 1)]); other cameras
         (the human view) never are."""
+        if isinstance(poses, EnvState):
+            if cam_pose_noise is None:
+                cam_pose_noise = poses.task.get("cam_pose_noise")
+            poses = poses.world
         sensors = cameras is None or cameras is self.cameras
         cameras = self.cameras if cameras is None else cameras
         if cam_pose_noise is None:
@@ -565,9 +628,7 @@ class GsBaseEnv:
         return torch.stack(outs, dim=1)
 
     def sensor_params(self, state: EnvState, link_pose=None):
-        ext = self.camera_extrinsics_cv(
-            state.world, link_pose=link_pose,
-            cam_pose_noise=state.task.get("cam_pose_noise"))
+        ext = self.camera_extrinsics_cv(state, link_pose=link_pose)
         K = self.camera_intrinsics(device=ext.device)
         return {
             cam.name: {
@@ -628,9 +689,22 @@ class GsBaseEnv:
             action = action.expand(self.num_envs, -1)
         return action
 
+    def _graphed(self) -> bool:
+        """Whether ``step`` replays a CUDA graph (a CUDA env built with
+        ``graph=True``)."""
+        return self.graph and self.device.type == "cuda"
+
     def step(self, action):
-        (self._state, obs, reward, terminated, truncated,
-         info) = self._step_fn(self._state, self._as_action(action))
+        action = self._as_action(action)
+        if self._graphed():
+            if self._step_graph is None:
+                self._step_graph = StepGraph(self._step_fn, self.device,
+                                             self._state, action,
+                                             "the env step")
+            out = self._step_graph(self._state, action)
+        else:
+            out = self._step_fn(self._state, action)
+        (self._state, obs, reward, terminated, truncated, info) = out
         return obs, reward, terminated, truncated, info
 
     def get_state_dict(self):

@@ -40,9 +40,15 @@ class BananaRotationXArmEnv(XArmTabletop):
         ]
 
     def _banana_init_q(self, device=None):
-        """The spawn orientation, yaw +90 deg (made on the CPU)."""
-        q = axis_angle_to_quat(torch.tensor([0.0, 0.0, math.pi / 2]))
-        return q if device is None else q.to(device)
+        """The spawn orientation, yaw +90 deg, made on the CPU and copied
+        to ``device`` once: ``evaluate`` runs inside a captured step,
+        where nothing is copied from the host."""
+        cache = self.__dict__.setdefault("_init_q", {})
+        key = None if device is None else torch.device(device)
+        if key not in cache:
+            q = axis_angle_to_quat(torch.tensor([0.0, 0.0, math.pi / 2]))
+            cache[key] = q if device is None else q.to(device)
+        return cache[key]
 
     def _initialize_episode(self, draws) -> EpisodeInit:
         Bn, dev = draws.shape[0], draws.device

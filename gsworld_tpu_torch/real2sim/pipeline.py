@@ -72,12 +72,15 @@ def train_from_colmap_model(points_xyz: np.ndarray,
                             params: Optional[OptimizationParams] = None,
                             iterations: Optional[int] = None,
                             capacity: Optional[int] = None,
-                            seed: int = 0, device="cuda",
-                            callback: Optional[Callable] = None
+                            seed: int = 0, log_every: int = 0,
+                            device="cuda", *,
+                            callback: Optional[Callable] = None,
+                            graph: bool = True
                             ) -> Tuple[GaussianScene, List[float]]:
     """create_from_pcd -> train on ``device``.  Images are (H, W, 3) in
-    [0, 1] (numpy arrays or tensors); ``callback`` is passed to
-    :func:`train`.  Returns (scene of the alive Gaussians, losses)."""
+    [0, 1] (numpy arrays or tensors); ``log_every``, ``callback`` and
+    ``graph`` (one CUDA graph of the train step on the card) are passed
+    to :func:`train`.  Returns (scene of the alive Gaussians, losses)."""
     scene0 = create_from_pcd(points_xyz, points_rgb, device=device)
     extent = float(np.linalg.norm(
         points_xyz.max(0) - points_xyz.min(0)) / 2.0) or 1.0
@@ -86,7 +89,8 @@ def train_from_colmap_model(points_xyz: np.ndarray,
     scene, ds, losses = train(scene0, list(cams), images, cfg,
                               params=params, iterations=iterations,
                               capacity=capacity, seed=seed,
-                              scene_extent=extent, callback=callback)
+                              scene_extent=extent, log_every=log_every,
+                              callback=callback, graph=graph)
     alive = ds.alive
     return GaussianScene(**{f: getattr(scene, f)[alive]
                             for f in SCENE_FIELDS}), losses
@@ -141,9 +145,12 @@ def reconstruct_scene(data_dir: str, model_dir: str,
                       scene_config: Optional[str] = None,
                       capacity: Optional[int] = None,
                       log_every: int = 500,
+                      backend: str = "auto",
                       device="cuda") -> ReconstructionResult:
     """Images -> trained scene (colmap_and_gs.sh:100-156), training on
-    ``device``.
+    ``device``.  ``backend`` is accepted for the JAX package's callers and
+    ignored: the port has one backend (the CUDA kernels on the card,
+    their plain versions on the CPU).
 
     ``data_dir`` holds ``images/``; with ``skip_sfm`` it holds the text
     model in ``sparse/0``, else SfM writes one.  The trained PLY lands in
@@ -178,15 +185,10 @@ def reconstruct_scene(data_dir: str, model_dir: str,
                                       device=device)
     imgs = _load_images(image_dir, names, width, height)
 
-    def log(it, state, loss, densified):
-        if log_every and it % log_every == 0:
-            print(f"iter {it}: loss={loss:.4f} "
-                  f"alive={int(state.ds.alive.sum())}", flush=True)
-
     scene, losses = train_from_colmap_model(
         xyz, rgb, cams, imgs, RasterConfig(width=width, height=height),
-        iterations=iterations, capacity=capacity, device=device,
-        callback=log)
+        iterations=iterations, capacity=capacity, log_every=log_every,
+        device=device)
 
     out_dir = os.path.join(model_dir, "point_cloud", f"iteration_{iterations}")
     os.makedirs(out_dir, exist_ok=True)

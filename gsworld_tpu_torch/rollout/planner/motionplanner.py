@@ -32,6 +32,7 @@ from gsworld_tpu_torch.core.maths import (
 )
 from gsworld_tpu_torch.envs.base import GsBaseEnv
 from gsworld_tpu_torch.physics.ik import ee_pose_fn, solve_ik
+from gsworld_tpu_torch.utils.cuda_graph import capture
 
 
 def _f32(x):
@@ -75,24 +76,22 @@ def quat_slerp_screw(p0, q0, p1, q1, n: int):
 
 class _IKGraph:
     """``solve(*inputs)`` captured into a CUDA graph on static copies of
-    ``inputs`` and replayed per call, with the inputs' device current (as
-    envs/base.py's physics graph)."""
+    ``inputs`` (``utils.cuda_graph.capture``) and replayed per call, with
+    the inputs' device current."""
 
     WARMUP = 3
 
     def __init__(self, solve, *inputs):
         self.inputs = [x.clone() for x in inputs]
         self.device = inputs[0].device
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(self.WARMUP):
-                    solve(*self.inputs)
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side):  # on the device
-                self.outputs = solve(*self.inputs)
+
+        def warm():
+            for _ in range(self.WARMUP):
+                solve(*self.inputs)
+
+        self.graph, self.outputs = capture(
+            lambda: solve(*self.inputs), warm, self.device,
+            "the IK solve")
 
     def __call__(self, *inputs):
         for buf, x in zip(self.inputs, inputs):

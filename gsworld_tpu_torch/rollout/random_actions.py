@@ -34,11 +34,11 @@ def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
           max_tiles_per_gaussian: int = 64, tile: int = 32,
           max_entries: int = 1 << 19, device="cuda", graph: bool = True,
           asset_dir=None, cfg_dir=None, **env_kwargs):
-    """-> (env, wrapper).  ``graph`` captures the env's physics step into
-    a CUDA graph (ignored on the CPU); ``asset_dir`` and ``cfg_dir`` say
-    where the scene config and its scans are (the wrapper merges the
-    scans when they exist); ``env_kwargs`` go to the env (e.g.
-    ``domain_randomization=True``, ``control_mode``)."""
+    """-> (env, wrapper).  ``graph`` steps the env and the wrapper through
+    CUDA graphs of their whole step (ignored on the CPU); ``asset_dir``
+    and ``cfg_dir`` say where the scene config and its scans are (the
+    wrapper merges the scans when they exist); ``env_kwargs`` go to the
+    env (e.g. ``domain_randomization=True``, ``control_mode``)."""
     from gsworld_tpu_torch import envs
     from gsworld_tpu_torch.render.camera import RasterConfig
     from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
@@ -81,53 +81,69 @@ def _synchronize(devices):
 def scan_shards(wrappers, actions):
     """Step each of ``wrappers`` (shards of one loop, each on its own
     device) through its own ``actions`` (n, B_k, A), one step of every
-    shard after another, from the states their envs hold -> env 0's
-    first-camera frames of the first shard, (n, H, W, 3) uint8 on its
-    device; each env is left at its new state.
+    shard after another, from the states their envs hold -> (env 0's
+    first-camera frames of the first shard, (n, H, W, 3) uint8, and the
+    mean of every step's first-camera rgb over all envs of all shards,
+    (n,) f32, the JAX package's per-step sums of its scanned loop), both
+    on the first shard's device; each env is left at its new state.
 
-    On the card each shard replays its ``_StepGraph``: per step one copy
-    of the step's actions into the graph's input and one replay, queued
-    with the shard's device current, and one copy of the frame into a
-    buffer made before the first step, with no host read or copy to the
-    host before the end.  On the CPU the same steps run eagerly (the
-    plain version of the same function)."""
+    On the card each shard replays its wrapper's ``step_graph``: per step
+    one copy of the step's actions into the graph's input and one
+    replay, queued with the shard's device current, one sum of the
+    shard's frames and one copy of the frame into a buffer made before
+    the first step, with no host read or copy to the host before the
+    end.  On the CPU the same steps run eagerly (the plain version of the
+    same function)."""
     n = actions[0].shape[0]
     w0 = wrappers[0]
     cam = w0.env.cameras[0].name
     if w0.env.device.type != "cuda":
-        frames = []
+        frames, sums = [], []
         for i in range(n):
+            total = 0.0
             for k, (w, a) in enumerate(zip(wrappers, actions)):
                 w.env._state, obs, *_ = w._step_and_render(w.env._state,
                                                            a[i])
+                rgb = obs["sensor_data"][cam]["rgb"]
+                total = total + rgb.sum(dtype=torch.float64)
                 if k == 0:
-                    frames.append(obs["sensor_data"][cam]["rgb"][0])
-        return torch.stack(frames)
+                    frames.append(rgb[0])
+            sums.append(total)
+        frames = torch.stack(frames)
+        count = sum(w.num_envs for w in wrappers) * frames[0].numel()
+        return frames, (torch.stack(sums) / count).to(torch.float32)
     graphs = [w.step_graph(a[0]) for w, a in zip(wrappers, actions)]
     for w, g in zip(wrappers, graphs):
         g.load(w.env._state)
     src = graphs[0].obs["sensor_data"][cam]["rgb"][0]
     frames = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
                          device=src.device)
+    sums = [torch.zeros(n, dtype=torch.float64, device=g.device)
+            for g in graphs]
     for i in range(n):
         for k, (g, a) in enumerate(zip(graphs, actions)):
             g.replay(a[i])
-            if k == 0:
-                with torch.cuda.device(src.device):
+            with torch.cuda.device(g.device):
+                sums[k][i] = g.obs["sensor_data"][cam]["rgb"].sum(
+                    dtype=torch.float64)
+                if k == 0:
                     frames[i].copy_(src)
     for w, g in zip(wrappers, graphs):
         w.env._state = g.state_clone()
-    return frames
+    count = sum(w.num_envs for w in wrappers) * src.numel()
+    with torch.cuda.device(src.device):
+        total = sum(s.to(src.device) for s in sums)
+        return frames, (total / count).to(torch.float32)
 
 
 def scan_steps(wrapper, actions, state=None):
     """The scanned loop (the JAX package's ``scan_fn``): ``actions`` (n,
     B, A) on the env's device stepped from ``state`` (default: the env's
-    own) -> env 0's first-camera frames (n, H, W, 3) uint8; the env is
-    left at the new state.  On the card every step replays the wrapper's
-    CUDA graph of its whole step, and a capture that fails raises (the
-    scanned loop never runs eagerly on the card); on the CPU the steps
-    run eagerly."""
+    own) -> (env 0's first-camera frames (n, H, W, 3) uint8, each step's
+    first-camera rgb mean over the envs (n,) f32); the env is left at the
+    new state.  On the card every step replays the wrapper's CUDA graph of
+    its whole step, and a capture that fails raises (the scanned loop
+    never runs eagerly on the card); on the CPU the steps run eagerly."""
     if state is not None:
         wrapper.env._state = state
     return scan_shards([wrapper], [actions])
@@ -140,20 +156,23 @@ def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
     frames).
 
     Eager (``use_scan=False``): the loop is on the host, as a user's is;
-    the env's physics step replays its CUDA graph when the env was built
-    with ``graph=True``.  After ``warmup`` steps, ``ep_len`` timed steps;
-    the clock stops after a synchronize and a host read of the last
-    frame, and ``frames`` are the last step's first-camera frames (B, H,
-    W, 3) uint8.
+    each step replays the wrapper's CUDA graph of its whole step when the
+    env was built on the card with ``graph=True``.  After ``warmup``
+    steps, ``ep_len`` timed steps; the clock stops after a synchronize and
+    a host read of the last frame, and ``frames`` are the last step's
+    first-camera frames (B, H, W, 3) uint8.
 
     Scanned (``use_scan=True``), timed as the JAX package times its
-    ``lax.scan``: ``warmup`` scanned steps (the capture), then SCAN_REPS
-    reps of ``ep_len`` steps, each continuing from the state the last one
-    left, each with its own actions, drawn up front from the loop's CPU
-    generator (so a seed gives the eager loop's actions); each rep's
-    clock stops after a synchronize and the host read of its frames, and
-    the best rep counts.  ``frames`` are env 0's first-camera frames of
-    every step of the last rep, (ep_len, H, W, 3) uint8.
+    ``lax.scan``: with ``warmup``, one whole scan of ``ep_len`` steps (the
+    JAX package's compile call; the capture is in its first step), then
+    SCAN_REPS reps of ``ep_len`` steps, each continuing from the state
+    the last one left, each with its own actions, drawn up front from the
+    loop's CPU generator (so a seed gives the eager loop's actions).  Each
+    rep computes on the device the per-step mean of the first camera's
+    rgb over all envs, and its clock stops after a synchronize and the
+    host read of those ``ep_len`` floats; the best rep counts.  The last
+    rep's frames are copied to the host after its clock: env 0's
+    first-camera frames of every step, (ep_len, H, W, 3) uint8.
 
     ``shard`` splits the env axis over every visible card
     (``dist.mesh.env_mesh()``; over the CPU for an env built there): a
@@ -175,7 +194,7 @@ def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
         scan = (loop.scan_steps if shard
                 else functools.partial(scan_steps, wrapper))
         if warmup:
-            scan(env.action_space_sample(gen, steps=warmup))
+            scan(env.action_space_sample(gen, steps=ep_len))[1].cpu()
         _synchronize(devices)
         if on_timed_start is not None:
             on_timed_start()
@@ -183,11 +202,12 @@ def rollout_fps(wrapper, ep_len: int, seed: int = 0, warmup: int = 2,
         for _ in range(SCAN_REPS):
             actions = env.action_space_sample(gen, steps=ep_len)
             t0 = time.perf_counter()
-            frames = scan(actions)
+            frames, means = scan(actions)
             _synchronize(devices)
-            frames = frames.cpu().numpy()
+            means.cpu().numpy()
             best = min(best, time.perf_counter() - t0)
-        return ep_len * env.num_envs / best, best / ep_len, frames
+        return ep_len * env.num_envs / best, best / ep_len, \
+            frames.cpu().numpy()
     for _ in range(warmup):
         obs, *_ = loop.step(env.action_space_sample(gen))
     _host_read(obs, env)
@@ -223,8 +243,8 @@ def parse_args(argv=None):
                    help="the scanned loop: one CUDA graph replay of the "
                         "whole step per step, best of 3 reps")
     p.add_argument("--no_graph", action="store_true",
-                   help="step the physics eagerly in the eager loop (the "
-                        "scanned loop always replays its graph)")
+                   help="step eagerly in the eager loop (the scanned loop "
+                        "always replays its graph)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--save_video_dir", default=None)
     return p.parse_args(argv)

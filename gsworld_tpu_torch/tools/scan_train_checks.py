@@ -48,9 +48,9 @@ def main(argv=None):
             seen[key] = it_now[0]
             print(f"iteration {it_now[0]}: {text}", flush=True)
 
-    adam_step, densify = T.adam_step, T.densify_and_prune
+    adam_update, densify = T.adam_update, T.densify_and_prune
 
-    def checked_adam(scene, grads, opt_state, lrs):
+    def checked_adam(scene, grads, opt_state):
         for f, g in grads.items():
             rows = bad_rows(g)
             if rows.any():
@@ -59,7 +59,7 @@ def main(argv=None):
                        f"{int(rows.sum())} rows, e.g. {idx.tolist()}: "
                        + "; ".join(f"{h} {getattr(scene, h)[idx].tolist()}"
                                    for h in SCENE_FIELDS))
-        return adam_step(scene, grads, opt_state, lrs)
+        return adam_update(scene, grads, opt_state)
 
     def checked_densify(scene, ds, *a, **kw):
         out = densify(scene, ds, *a, **kw)
@@ -81,11 +81,12 @@ def main(argv=None):
                     report(("state", f), f"{int(rows.sum())} alive rows "
                            f"with a non-finite {f} (loss {loss})")
         kw["callback"] = after
+        kw["graph"] = False      # the checks read the host every step
         it_now[0] = 1
         return train_plain(*a, **kw)
 
     train_plain = pipeline.train
-    T.adam_step, T.densify_and_prune = checked_adam, checked_densify
+    T.adam_update, T.densify_and_prune = checked_adam, checked_densify
     pipeline.train = train
     failed = 0
     for r in range(args.repeats):

@@ -12,7 +12,8 @@ iterations), the 10th, 50th and 90th percentiles of
 
   * the step: from one iteration's end to the next, loss read included;
   * its host part: from the start of the step function until it returns,
-    every launch queued and nothing waited for;
+    every launch queued (or, on a tree whose ``train`` replays a CUDA
+    graph of the step, the replay queued) and nothing waited for;
   * the rest: mostly the loss read, which waits for the device to finish
     the step;
 
@@ -57,8 +58,8 @@ def main(argv=None):
     host = []
     make_step = train_mod.make_train_step
 
-    def timed_make_step(cfg, params):
-        step = make_step(cfg, params)
+    def timed_make_step(cfg, params, **kw):
+        step = make_step(cfg, params, **kw)
 
         def timed_step(*a):
             t0 = time.perf_counter()

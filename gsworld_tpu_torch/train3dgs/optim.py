@@ -13,13 +13,18 @@ is added outside the square root.  It is a small explicit Adam over a
 dict of moment tensors, and it updates the scene fields and the moments
 in place (densify resets single rows of the moments, which this keeps
 simple).
+
+The step's bias corrections and learning rates are device scalars
+(``AdamState.scalars``) that ``write_step_scalars`` fills before the
+update, so the update itself (``adam_update``) reads nothing from the
+host and replays from a CUDA graph (``train.TrainStepGraph``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -94,29 +99,55 @@ class AdamState:
     mu: Dict[str, torch.Tensor]   # first moments, per trainable field
     nu: Dict[str, torch.Tensor]   # second moments
     count: int = 0                # steps taken
+    # f32 on the moments' device: the step's two bias corrections, then
+    # the learning rate of each field of TRAINABLE
+    scalars: Optional[torch.Tensor] = None
 
 
 def adam_init(scene: GaussianScene) -> AdamState:
     return AdamState(
         mu={f: torch.zeros_like(getattr(scene, f)) for f in TRAINABLE},
-        nu={f: torch.zeros_like(getattr(scene, f)) for f in TRAINABLE})
+        nu={f: torch.zeros_like(getattr(scene, f)) for f in TRAINABLE},
+        scalars=torch.ones(2 + len(TRAINABLE), dtype=torch.float32,
+                           device=scene.means.device))
+
+
+def write_step_scalars(state: AdamState,
+                       lrs: Dict[str, Callable[[int], float]]):
+    """Write the device scalars of step ``state.count``: the bias
+    corrections 1 - b^(k + 1) and each field's ``lrs[f](k)``.  On the card
+    the copy is queued from pinned memory, so it waits for nothing."""
+    k = state.count
+    vals = torch.tensor([1.0 - B1 ** (k + 1), 1.0 - B2 ** (k + 1)]
+                        + [lrs[f](k) for f in TRAINABLE],
+                        dtype=torch.float32)
+    if state.scalars.is_cuda:
+        vals = vals.pin_memory()
+    state.scalars.copy_(vals, non_blocking=True)
 
 
 @torch.no_grad()
-def adam_step(scene: GaussianScene, grads: Dict[str, torch.Tensor],
-              state: AdamState, lrs: Dict[str, Callable[[int], float]]):
-    """One Adam step on every trainable field, in place (fields, moments
-    and count)."""
-    k = state.count
-    bc1 = 1.0 - B1 ** (k + 1)
-    bc2 = 1.0 - B2 ** (k + 1)
-    for f in TRAINABLE:
+def adam_update(scene: GaussianScene, grads: Dict[str, torch.Tensor],
+                state: AdamState):
+    """The Adam update of the step whose scalars ``write_step_scalars``
+    wrote, on every trainable field, in place (fields and moments); it
+    reads nothing from the host."""
+    bc1, bc2 = state.scalars[0], state.scalars[1]
+    for i, f in enumerate(TRAINABLE):
         g = grads[f]
         mu = state.mu[f].mul_(B1).add_((1.0 - B1) * g)
         nu = state.nu[f].mul_(B2).add_((1.0 - B2) * (g * g))
         upd = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-        getattr(scene, f).sub_(lrs[f](k) * upd)
-    state.count = k + 1
+        getattr(scene, f).sub_(state.scalars[2 + i] * upd)
+
+
+def adam_step(scene: GaussianScene, grads: Dict[str, torch.Tensor],
+              state: AdamState, lrs: Dict[str, Callable[[int], float]]):
+    """One Adam step on every trainable field, in place (fields, moments,
+    scalars and count)."""
+    write_step_scalars(state, lrs)
+    adam_update(scene, grads, state)
+    state.count += 1
 
 
 @torch.no_grad()

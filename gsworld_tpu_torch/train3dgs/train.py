@@ -8,6 +8,11 @@ through the projection and SH.  The viewspace-gradient statistic for
 densification is the gradient of a zero offset ``d2d`` added to the
 projected means.  Dead capacity slots carry opacity logit -10 and never
 render.
+
+On the card ``train`` replays one CUDA graph of the train step per
+iteration (``TrainStepGraph``), as the JAX package runs its jitted
+``train_step``; densify and the opacity reset run between replays and
+write into the graph's buffers.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 from torch.profiler import record_function
 
-from gsworld_tpu_torch.gs.model import GaussianScene
+from gsworld_tpu_torch.gs.model import SCENE_FIELDS, GaussianScene
 from gsworld_tpu_torch.gs.transform import PosedGaussians
 from gsworld_tpu_torch.render.camera import GSCamera, RasterConfig
 from gsworld_tpu_torch.render.rasterize import project_frames, render_projected
@@ -36,10 +41,12 @@ from gsworld_tpu_torch.train3dgs.optim import (
     AdamState,
     OptimizationParams,
     adam_init,
-    adam_step,
+    adam_update,
     learning_rates,
+    write_step_scalars,
     zero_rows,
 )
+from gsworld_tpu_torch.utils.cuda_graph import capture
 
 
 class TrainState(NamedTuple):
@@ -64,15 +71,19 @@ def render_trainable(scene: GaussianScene, d2d, cam: GSCamera,
     return img[0], flat.radius[0]
 
 
-def make_train_step(cfg: RasterConfig, params: OptimizationParams):
-    """-> ``train_step(state, cam, target) -> (state, loss, image)``.  The
-    step updates the scene fields and the Adam moments in place."""
-    lrs = learning_rates(params)
+def _make_update(cfg: RasterConfig, params: OptimizationParams):
+    """-> ``update(state, cam, target) -> (densify state, loss, image)``:
+    the forward, the backward, Adam on the state's scene fields and
+    moments in place (with the scalars ``write_step_scalars`` wrote) and
+    the densify statistics.  It reads nothing from the host, so it
+    captures into a CUDA graph."""
     # the Inria backward reports dL/dmean2D in NDC units (pixel grad x
-    # 0.5 W, 0.5 H), to which densify_grad_threshold is calibrated
-    ndc_scale = (0.5 * cfg.width, 0.5 * cfg.height)
+    # 0.5 W, 0.5 H), to which densify_grad_threshold is calibrated; the
+    # factors' tensor is made once per device, at the first (uncaptured)
+    # step
+    ndc_scale = {}
 
-    def train_step(state: TrainState, cam: GSCamera, target):
+    def update(state: TrainState, cam: GSCamera, target):
         scene = state.scene
         leaves = {f: getattr(scene, f).detach().requires_grad_(True)
                   for f in TRAINABLE}
@@ -89,25 +100,148 @@ def make_train_step(cfg: RasterConfig, params: OptimizationParams):
         grads = {f: g * alive.reshape((-1,) + (1,) * (g.dim() - 1))
                  for f, g in zip(TRAINABLE, g_leaves)}
         with record_function("gsw.adam"):
-            adam_step(scene, grads, state.opt_state, lrs)
-        ds = accumulate_stats(state.ds, g_d2d * g_d2d.new_tensor(ndc_scale),
-                              radii)
-        return (TrainState(scene=scene, ds=ds, opt_state=state.opt_state,
-                           step=state.step + 1),
-                loss.detach(), img.detach())
+            adam_update(scene, grads, state.opt_state)
+        dev = g_d2d.device
+        if dev not in ndc_scale:
+            ndc_scale[dev] = torch.tensor(
+                [0.5 * cfg.width, 0.5 * cfg.height], dtype=g_d2d.dtype,
+                device=dev)
+        ds = accumulate_stats(state.ds, g_d2d * ndc_scale[dev], radii)
+        return ds, loss.detach(), img.detach()
+
+    return update
+
+
+def _clone_train_state(state: TrainState) -> TrainState:
+    opt = state.opt_state
+    return TrainState(
+        scene=GaussianScene(**{f: getattr(state.scene, f).clone()
+                               for f in SCENE_FIELDS}),
+        ds=DensifyState(*(x.clone() for x in state.ds)),
+        opt_state=AdamState(mu={k: v.clone() for k, v in opt.mu.items()},
+                            nu={k: v.clone() for k, v in opt.nu.items()},
+                            count=opt.count, scalars=opt.scalars.clone()),
+        step=state.step)
+
+
+class TrainStepGraph:
+    """One train step (``_make_update``'s ``update``) captured into one
+    CUDA graph, the counterpart of the JAX package's jitted
+    ``train_step``: the forward (emit and compositor kernels), the loss,
+    ``torch.autograd.grad`` through the backward kernel, the alive mask,
+    Adam and the densify statistics.
+
+    Its static buffers are the tensors of the TrainState it was captured
+    on (scene fields, Adam moments and scalars, densify statistics), which
+    every replay updates in place, and a camera and a target image, which
+    each call copies in.  What changes them outside the graph (densify,
+    an opacity reset, the step's Adam scalars) writes into those tensors.
+    ``loss`` and ``img`` are static outputs, overwritten by every replay;
+    a call returns clones of them.
+
+    Captured by ``utils.cuda_graph.capture``, as ``envs.base.StepGraph``
+    is, after WARMUP steps on a clone of the state (which build the
+    kernels and fill the lazy caches and leave the state as it was).  A
+    failed capture raises: nothing falls back to the eager step."""
+
+    WARMUP = 2
+
+    def __init__(self, update, state: TrainState, cam: GSCamera, target):
+        self.device = state.scene.means.device
+        self.state = state
+        self.cam = GSCamera(*(x.clone() for x in cam))
+        self.target = target.clone()
+
+        def warm():
+            s = _clone_train_state(state)
+            for _ in range(self.WARMUP):
+                s = s._replace(ds=update(s, self.cam, self.target)[0])
+
+        def body():
+            ds, loss, img = update(state, self.cam, self.target)
+            for dst, src in zip(state.ds, ds):
+                dst.copy_(src)
+            return loss, img
+
+        self.graph, (self.loss, self.img) = capture(
+            body, warm, self.device, "the train step")
+
+    def __call__(self, state: TrainState, cam: GSCamera, target):
+        """One step of the state it was captured on against (``cam``,
+        ``target``) -> (densify state, loss, image); the loss and the
+        image in tensors of their own, as the eager step returns them."""
+        if state.scene.means is not self.state.scene.means:
+            raise ValueError("a train-step graph steps the state it was "
+                             "captured on")
+        with torch.cuda.device(self.device):
+            for dst, src in zip(self.cam, cam):
+                dst.copy_(src)
+            self.target.copy_(target)
+            self.graph.replay()
+            return self.state.ds, self.loss.clone(), self.img.clone()
+
+
+def make_train_step(cfg: RasterConfig, params: OptimizationParams,
+                    graph: bool = True):
+    """-> ``train_step(state, cam, target) -> (state, loss, image)``.  The
+    step updates the scene fields, the Adam moments and the densify
+    statistics in place.  With ``graph`` (the default) and a state on the
+    card, the first call captures the step into a ``TrainStepGraph`` and
+    every call replays it; the loss and image it returns are tensors of
+    their own.  Such a step serves one state: the one of its first call,
+    whose tensors the graph updates (each step returns that state again).
+    Another state raises ``ValueError``: step it with a new
+    ``make_train_step``.  ``graph=False`` and the CPU step eagerly, any
+    state."""
+    lrs = learning_rates(params)
+    update = _make_update(cfg, params)
+    captured = []
+
+    def train_step(state: TrainState, cam: GSCamera, target):
+        write_step_scalars(state.opt_state, lrs)
+        if graph and state.scene.means.is_cuda:
+            if not captured:
+                captured.append(TrainStepGraph(update, state, cam, target))
+            ds, loss, img = captured[0](state, cam, target)
+        else:
+            ds, loss, img = update(state, cam, target)
+        state.opt_state.count += 1
+        return (TrainState(scene=state.scene, ds=ds,
+                           opt_state=state.opt_state, step=state.step + 1),
+                loss, img)
 
     return train_step
+
+
+@torch.no_grad()
+def _write_state(state: TrainState, scene: GaussianScene,
+                 ds: Optional[DensifyState] = None):
+    """Copy ``scene`` (and ``ds``) into the state's own tensors, which a
+    train-step graph reads."""
+    for f in SCENE_FIELDS:
+        dst, src = getattr(state.scene, f), getattr(scene, f)
+        if dst is not src:
+            dst.copy_(src)
+    for dst, src in zip(state.ds, ds or ()):
+        dst.copy_(src)
 
 
 def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
           cfg: RasterConfig, params: Optional[OptimizationParams] = None,
           capacity: Optional[int] = None, seed: int = 0,
-          scene_extent: float = 3.0, iterations: Optional[int] = None,
-          callback: Optional[Callable] = None):
+          scene_extent: float = 3.0, log_every: int = 0,
+          iterations: Optional[int] = None, *,
+          callback: Optional[Callable] = None, graph: bool = True):
     """Train ``scene`` against (cameras[i], images[i]) pairs, cycling
     through the cameras; images are (H, W, 3) tensors on the scene's
-    device.  ``callback(it, state, loss, densified)``, when given, runs
-    after every iteration.  Returns (scene, densify state, losses)."""
+    device.  Every ``log_every`` iterations (0: never) it prints the JAX
+    package's line ``iter {it}: loss={loss:.4f} alive={n}``.
+    ``callback(it, state, loss, densified)``, when given, runs after
+    every iteration.  On the card with ``graph`` (the default) every
+    iteration replays one CUDA graph of the train step
+    (``TrainStepGraph``), and densify and the opacity reset write into
+    its buffers between replays; ``graph=False`` steps eagerly.  Returns
+    (scene, densify state, losses)."""
     params = params or OptimizationParams()
     iters = iterations or params.iterations
     dev = scene.means.device
@@ -116,7 +250,7 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
     scene = pad_scene_capacity(scene, capacity)
     state = TrainState(scene=scene, ds=init_densify_state(capacity, n0, dev),
                        opt_state=adam_init(scene), step=0)
-    train_step = make_train_step(cfg, params)
+    train_step = make_train_step(cfg, params, graph=graph)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     losses = []
@@ -135,9 +269,12 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
                 scene_extent=scene_extent)
             # reset the Adam moments of the rows densify rewrote only
             zero_rows(state.opt_state, changed)
-            state = state._replace(scene=scene2, ds=ds2)
+            _write_state(state, scene2, ds2)
         if it % params.opacity_reset_interval == 0:
-            state = state._replace(scene=reset_opacity(state.scene))
+            _write_state(state, reset_opacity(state.scene))
+        if log_every and it % log_every == 0:
+            print(f"iter {it}: loss={losses[-1]:.4f} "
+                  f"alive={int(state.ds.alive.sum())}", flush=True)
         if callback is not None:
             callback(it, state, losses[-1], densified)
     return state.scene, state.ds, losses

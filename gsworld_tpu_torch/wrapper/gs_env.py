@@ -31,10 +31,12 @@ Output contract (as the JAX wrapper): per camera, ``rgb`` uint8
 (B, H, W, 3) from ``clip(img * 255, 0, 255)`` truncated, and with
 segmentation in ``env.obs_mode`` an int16 ``segmentation`` (B, H, W, 1).
 
-``GSWorldWrapper.step`` runs the step eagerly (the physics from the env's
-CUDA graph); ``step_graph`` captures the whole step, physics to render,
-as one CUDA graph (``_StepGraph``, the JAX wrapper's ``_jit_step``), which
-the scanned loop (``rollout/random_actions.py:scan_steps``) replays.
+On a CUDA env built with ``graph=True`` (the default),
+``GSWorldWrapper.step`` replays one CUDA graph of the whole step, physics
+to render (``step_graph``: an ``envs.base.StepGraph`` of
+``_step_and_render``, the JAX wrapper's ``_jit_step``), captured at the
+first step; the scanned loop (``rollout/random_actions.py:scan_steps``)
+replays the same graph.  ``graph=False`` and the CPU step eagerly.
 """
 
 from __future__ import annotations
@@ -52,12 +54,16 @@ from gsworld_tpu_torch.core.maths import (
     tf_from_pq,
     tf_inverse_rigid,
 )
-from gsworld_tpu_torch.envs.base import EnvPoses, EnvState, GsBaseEnv
+from gsworld_tpu_torch.envs.base import (  # noqa: F401 (_clone_state)
+    EnvPoses,
+    GsBaseEnv,
+    StepGraph,
+    _clone_state,
+)
 from gsworld_tpu_torch.gs.scene_factory import get_scene
 from gsworld_tpu_torch.gs.transform import SlotTransforms, repose_scene
 from gsworld_tpu_torch.physics.kinematics import forward_kinematics
 from gsworld_tpu_torch.physics.spec_io import load_surface_points
-from gsworld_tpu_torch.physics.world import WORLD_FIELDS
 from gsworld_tpu_torch.render.camera import RasterConfig, cam_maniskill2gs
 from gsworld_tpu_torch.render.rasterize import render as gs_render
 
@@ -264,107 +270,6 @@ def world_poses(world, task=None) -> EnvPoses:
                     cam_pose_noise=task.get("cam_pose_noise"))
 
 
-def _state_tensors(state: EnvState):
-    """(name, tensor) of every tensor of ``state``, in a fixed order."""
-    for f in WORLD_FIELDS:
-        v = getattr(state.world, f)
-        if v is not None:
-            yield f"world.{f}", v
-    yield "elapsed", state.elapsed
-    yield "prev_target", state.prev_target
-    for k in sorted(state.task):
-        yield f"task.{k}", state.task[k]
-
-
-def _clone_state(state: EnvState) -> EnvState:
-    return EnvState(
-        world=state.world.replace(**{
-            f: getattr(state.world, f).clone() for f in WORLD_FIELDS
-            if getattr(state.world, f) is not None}),
-        elapsed=state.elapsed.clone(), prev_target=state.prev_target.clone(),
-        task={k: v.clone() for k, v in state.task.items()})
-
-
-def _copy_state(dst: EnvState, src: EnvState):
-    """Copy ``src``'s tensors into ``dst``'s (the same fields and shapes);
-    a tensor that is ``dst``'s own is left as it is."""
-    dst_t, src_t = list(_state_tensors(dst)), list(_state_tensors(src))
-    if [n for n, _ in dst_t] != [n for n, _ in src_t]:
-        raise ValueError(f"state fields {[n for n, _ in src_t]} differ from "
-                         f"{[n for n, _ in dst_t]}")
-    for (_, d), (_, s) in zip(dst_t, src_t):
-        if s is not d:
-            d.copy_(s)
-
-
-class _StepGraph:
-    """``GSWorldWrapper._step_and_render`` of one wrapper captured whole
-    into one CUDA graph, the counterpart of the JAX wrapper's
-    ``_jit_step``: the physics, FK, task state, evaluate, observations,
-    reward and the GS render of every env x sensor camera.
-
-    Static inputs are the EnvState's tensors (``state``) and the (B, A)
-    ``action``.  The captured step ends by copying its new state into
-    ``state``, so one replay is one step and n replays are n steps.
-    Static outputs, overwritten by every replay: ``state``, ``obs`` (per
-    camera ``obs["sensor_data"][cam]["rgb"]`` and ``"segmentation"``),
-    ``reward``, ``terminated``, ``truncated``, ``info``, and the
-    renderer's ``last_overflow``.  The kernels' host launch counts move at
-    capture only: a replay launches one emit and one compositor kernel.
-
-    Built as the env's ``_PhysicsGraph`` is: with the env's device
-    current, on a named side stream (the default capture stream belongs
-    to the device current at the first capture of the process), after
-    WARMUP steps on clones of the state, which fill every lazy cache (the
-    kernel build, the camera constants, the scene tensors) outside the
-    capture and leave the env's state where it was."""
-
-    WARMUP = 2
-
-    def __init__(self, wrapper: "GSWorldWrapper", state: EnvState, action):
-        self.device = wrapper.env.device
-        self.state = _clone_state(state)
-        self.action = action.clone()
-        with torch.no_grad(), torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                warm = _clone_state(state)
-                for _ in range(self.WARMUP):
-                    warm = wrapper._step_and_render(
-                        warm, self.action, physics_graph=False)[0]
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(self.graph, stream=side):
-                    out = wrapper._step_and_render(
-                        self.state, self.action, physics_graph=False)
-                    _copy_state(self.state, out[0])
-            except RuntimeError as e:
-                raise RuntimeError(
-                    "the closed-loop step did not capture into a CUDA "
-                    "graph: an operation in it synchronizes with the host "
-                    "(the traceback above names it)") from e
-        (_, self.obs, self.reward, self.terminated, self.truncated,
-         self.info) = out
-
-    def load(self, state: EnvState):
-        """Make ``state`` the state the next replay steps from."""
-        with torch.cuda.device(self.device):
-            _copy_state(self.state, state)
-
-    def replay(self, action):
-        """One step of the loaded state with ``action`` (B, A)."""
-        with torch.cuda.device(self.device):
-            self.action.copy_(action)
-            self.graph.replay()
-
-    def state_clone(self) -> EnvState:
-        """The state after the last replay, in tensors of its own."""
-        with torch.cuda.device(self.device):
-            return _clone_state(self.state)
-
-
 class GSWorldWrapper:
     """Wraps a GsBaseEnv; obs['sensor_data'][cam]['rgb'] becomes the GS
     render (uint8, (B, H, W, 3)) of the state after each reset and step,
@@ -399,32 +304,35 @@ class GSWorldWrapper:
             env, scene_gs_cfg_name, device=device, **self.render_kwargs)
         self.is_real_scene = self.renderer.is_real_scene
         self.raster_config = self.renderer.raster_config
-        self._step_graph: Optional[_StepGraph] = None
+        self._step_graph: Optional[StepGraph] = None
 
     def _render_fn(self, state, cameras=None) -> dict:
         with record_function("gsw.closed_loop.render"):
             return self.renderer.render(world_poses(state.world, state.task),
                                         cameras)
 
-    def _step_and_render(self, state, action, physics_graph: bool = True):
-        """One step of ``state`` and the GS render of the new state;
-        ``physics_graph`` as ``GsBaseEnv._step_fn`` takes it."""
+    def _step_and_render(self, state, action):
+        """One step of ``state`` and the GS render of the new state."""
         with record_function("gsw.closed_loop.physics"):
             (state, obs, reward, terminated, truncated,
-             info) = self.env._step_fn(state, action, physics_graph)
+             info) = self.env._step_fn(state, action)
         obs = dict(obs)
         obs["sensor_data"] = self._render_fn(state)
         return state, obs, reward, terminated, truncated, info
 
-    def step_graph(self, action) -> _StepGraph:
-        """The wrapper's whole step as one CUDA graph (``_StepGraph``),
-        captured at the first call from the env's current state, with
-        ``action``'s shape; a CUDA env only."""
+    def step_graph(self, action) -> StepGraph:
+        """The wrapper's whole step as one CUDA graph (a ``StepGraph`` of
+        ``_step_and_render``), captured at the first call from the env's
+        current state, with ``action``'s shape; a CUDA env only.  A
+        replay launches one emit and one compositor kernel and overwrites
+        the renderer's ``last_overflow``."""
         if self.env.device.type != "cuda":
             raise ValueError(f"the env steps on {self.env.device}: only a "
                              f"CUDA env's step is captured")
         if self._step_graph is None:
-            self._step_graph = _StepGraph(self, self.env._state, action)
+            self._step_graph = StepGraph(self._step_and_render,
+                                         self.env.device, self.env._state,
+                                         action, "the closed-loop step")
         return self._step_graph
 
     def reset(self, seed: Optional[int] = None,
@@ -435,9 +343,15 @@ class GSWorldWrapper:
         return obs, info
 
     def step(self, action):
-        (self.env._state, obs, reward, terminated, truncated,
-         info) = self._step_and_render(self.env._state,
-                                       self.env._as_action(action))
+        """One step and the GS render of the new state; through the
+        wrapper's CUDA graph where the env's ``step`` replays one (its
+        outputs are tensors of their own, as the eager step's)."""
+        action = self.env._as_action(action)
+        if self.env._graphed():
+            out = self.step_graph(action)(self.env._state, action)
+        else:
+            out = self._step_and_render(self.env._state, action)
+        (self.env._state, obs, reward, terminated, truncated, info) = out
         if self.log_state:
             self.save_state_log()
         return obs, reward, terminated, truncated, info

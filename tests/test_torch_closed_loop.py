@@ -161,13 +161,17 @@ def test_scan_steps_matches_jax_and_eager(loops):
     cam = tenv.cameras[0].name
     saved = tenv._state
     try:
-        got = scan_steps(tw, actions, state=_clone_state(start)).numpy()
+        got, means = scan_steps(tw, actions, state=_clone_state(start))
+        got, means = got.numpy(), means.numpy()
     finally:
         tenv._state = saved
     assert got.shape == (STEPS, H, W, 3) and got.dtype == np.uint8
+    assert means.shape == (STEPS,) and means.dtype == np.float32
     for i, (jout, tout) in enumerate(frames):
-        np.testing.assert_array_equal(
-            got[i], tout[0]["sensor_data"][cam]["rgb"][0].numpy())
+        rgb = tout[0]["sensor_data"][cam]["rgb"].numpy()
+        np.testing.assert_array_equal(got[i], rgb[0])
+        np.testing.assert_allclose(means[i], rgb.mean(dtype=np.float64),
+                                   rtol=1e-6)
         p = _psnr_u8(got[i], np.asarray(jout[0]["sensor_data"][cam]["rgb"][0]))
         assert p >= 40.0, f"step {i}: PSNR {p:.1f} dB"
 
@@ -187,6 +191,53 @@ def test_rollout_fps_scan_returns_jax_contract(loops, tmp_path):
           "--synthetic_scale", "0.003", "--device", "cpu", "--scan",
           "--save_video_dir", str(tmp_path)])
     assert len(list(tmp_path.glob("frame_*.png"))) == 3
+
+
+def test_rollout_fps_scan_clock_reads_no_frames(loops, monkeypatch):
+    """The scanned clock covers what JAX's does (ROADMAP C23): a warm-up
+    of one whole scan of ep_len steps, then reps whose clock stops at the
+    host read of the per-step means, with the frames left on the device;
+    nothing reads the returned frames between a rep's two clock reads,
+    and the last rep's frames are read after the last one."""
+    import time
+    import types
+
+    import gsworld_tpu_torch.rollout.random_actions as ra
+    tw = loops[2]
+    log, calls = [], []
+
+    class Watched(torch.Tensor):
+        @classmethod
+        def __torch_function__(cls, func, types_, args=(), kwargs=None):
+            log.append("frames")
+            with torch._C.DisableTorchFunctionSubclass():
+                return func(*args, **(kwargs or {}))
+
+    def watched_scan(wrapper, actions, state=None):
+        calls.append(actions.shape[0])
+        frames, means = scan_steps(wrapper, actions, state)
+        return frames.as_subclass(Watched), means
+
+    def clock():
+        log.append("clock")
+        return time.perf_counter()
+
+    monkeypatch.setattr(ra, "scan_steps", watched_scan)
+    monkeypatch.setattr(ra, "time", types.SimpleNamespace(perf_counter=clock))
+    saved = tw.env._state
+    try:
+        _, _, frames = ra.rollout_fps(tw, 3, seed=4, warmup=2, use_scan=True)
+    finally:
+        tw.env._state = saved
+    assert frames.shape == (3, H, W, 3) and frames.dtype == np.uint8
+    assert calls == [3] * (1 + ra.SCAN_REPS)
+    clocks = 0
+    for event in log:
+        if event == "clock":
+            clocks += 1
+        else:
+            assert clocks % 2 == 0, f"frames read inside a timed rep: {log}"
+    assert clocks == 2 * ra.SCAN_REPS and log[-1] == "frames"
 
 
 def test_closed_loop_runs_without_jax():

@@ -295,8 +295,8 @@ def test_sharded_scan_equals_unsharded_scan(align):
     try:
         acts = env.action_space_sample(torch.Generator().manual_seed(5),
                                        steps=2)
-        want = scan_steps(w, acts)
-        got = loop.scan_steps(acts)
+        want = scan_steps(w, acts)[0]
+        got = loop.scan_steps(acts)[0]
         assert got.shape == (2, H, W, 3) and got.dtype == torch.uint8
         assert torch.equal(got, want)
         _assert_states_equal(loop.state, env.state)

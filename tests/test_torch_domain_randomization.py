@@ -160,6 +160,26 @@ def test_noisy_extrinsics_match_jax(jax_dr_env):
         tenv.camera_extrinsics_cv(state.world, human), rtol=0, atol=0)
 
 
+def test_extrinsics_of_env_state_match_jax(jax_dr_env):
+    """The JAX package's camera_extrinsics_cv takes the EnvState and
+    applies its task's cam_pose_noise to the sensor cameras (ROADMAP
+    C21): the port's, given the same EnvState, within 1e-5 of it, for the
+    sensor cameras and (without noise) the human view."""
+    jax_dr_env.reset(seed=5)
+    js = jax_dr_env.state
+    state = env_state_from_numpy(jax_state_fields(js), device="cpu")
+    tenv = dr_env(B)
+    got = tenv.camera_extrinsics_cv(state).numpy()
+    want = np.asarray(jax_dr_env.camera_extrinsics_cv(js))
+    assert np.abs(got - want).max() <= 1e-5
+    plain = tenv.camera_extrinsics_cv(state.world).numpy()
+    assert np.abs(got - plain).max() > 1e-4
+    human = np.asarray(jax_dr_env.camera_extrinsics_cv(
+        js, jax_dr_env.human_render_cameras))
+    got_h = tenv.camera_extrinsics_cv(state, tenv.human_render_cameras)
+    assert np.abs(got_h.numpy() - human).max() <= 1e-5
+
+
 def test_scale_affects_contacts():
     """A scaled-down object rests lower on the table."""
     env = dr_env(B)

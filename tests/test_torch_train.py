@@ -297,6 +297,50 @@ def test_train_step_matches_jax():
                                    atol=1e-4, err_msg=k)
 
 
+@pytest.mark.parametrize("name", ["train", "train_from_colmap_model",
+                                  "reconstruct_scene"])
+def test_signature_binds_jax_calls(name):
+    """A call of the JAX package's train (train3dgs), train_from_colmap_model
+    or reconstruct_scene (real2sim.pipeline) binds the same way in the
+    port (ROADMAP C22): JAX's parameters are the port's first ones, in
+    order, with their kinds and defaults (``log_every`` in JAX's place,
+    ``backend`` accepted); what the port adds comes after them, with a
+    default."""
+    import inspect
+
+    from gsworld_tpu.real2sim import pipeline as jpipeline
+    from gsworld_tpu_torch.real2sim import pipeline as tpipeline
+    from gsworld_tpu_torch.train3dgs import train as ttrain
+    jmod, tmod = ((jtrain, ttrain) if name == "train"
+                  else (jpipeline, tpipeline))
+    jfn, tfn = getattr(jmod, name), getattr(tmod, name)
+    want = list(inspect.signature(jfn).parameters.values())
+    got = list(inspect.signature(tfn).parameters.values())
+    assert [(p.name, p.kind, p.default) for p in got[:len(want)]] == [
+        (p.name, p.kind, p.default) for p in want]
+    assert all(p.default is not inspect.Parameter.empty
+               for p in got[len(want):])
+
+
+def test_train_logs_jax_lines(capsys):
+    """train(..., log_every=1) prints the JAX package's line at every
+    iteration: ``iter {it}: loss={loss:.4f} alive={n}``."""
+    from gsworld_tpu_torch.train3dgs.train import train
+    cfg = RasterConfig(width=48, height=48)
+    _, cam = _cam(0.2)
+    truth = scene_from_numpy(_fields(j_scene_from_splats(_splats(120, 8))),
+                             device="cpu")
+    with torch.no_grad():
+        target = render_trainable(truth, torch.zeros(120, 2), cam, cfg)[0]
+    capsys.readouterr()
+    scene, ds, losses = train(truth, [cam], [target], cfg, None, 128, 0,
+                              3.0, 1, 2)
+    lines = capsys.readouterr().out.splitlines()
+    n = int(ds.alive.sum())
+    assert lines == [f"iter {it}: loss={losses[it - 1]:.4f} alive={n}"
+                     for it in (1, 2)]
+
+
 def test_culled_gaussians_get_finite_gradients():
     """Gaussians on the camera plane (depth 0) and behind the camera are
     culled; their projection's 1/z terms must not turn their zero
