@@ -31,9 +31,16 @@ Phases (each prints a line; any failure exits non-zero before a result):
               projection and binning
   4. slice    GSWorldRenderer, 4 envs x 2 cameras, 640x480, tile 32,
               D=64, E=393216, alpha cull on, ~222k Gaussians: 10 batched
-              states; launch counts, ms per render step, frames/s,
-              overflow, peak memory; a torch.profiler window; and a small
-              render on the card held against the same render on the CPU
+              states rendered eagerly (the env's graph=False) and through
+              the renderer's CUDA graph (one replay per render step), 3
+              passes each in one call; launch counts (the eager renders
+              and the capture), ms per render step, frames/s, overflow,
+              peak memory allocated and reserved of each form; every
+              state's rgb, segmentation and overflow of the graph bit for
+              bit the eager render's; one emit and one compositor kernel
+              per replay by the profiler; a torch.profiler window of the
+              eager render; and a small render on the card held against
+              the same render on the CPU
   5. train    train_from_colmap_model at 640x480 (tile 32, D=64, E=2^19):
               the ~222k-Gaussian fr3_align scene rendered from 9 look-at
               cameras on a 120-degree arc is the truth, the middle view is
@@ -47,9 +54,12 @@ Phases (each prints a line; any failure exits non-zero before a result):
               memory; one train step graph vs eager within
               1e-4 of each field's max beside the eager-vs-eager spread,
               its loss and image unchanged by the next replay; in the
-              graph run, one call of the graph per iteration and, by the
-              profiler over the 3 replays after the first densify, one
-              emit, compositor and backward kernel per replay
+              graph run, one call of the graph per iteration, one call of
+              the densify graph per densify pass and, by the profiler
+              over the 3 replays after the first densify, one emit,
+              compositor and backward kernel per replay; one densify pass
+              through its graph vs eager from one state with the same
+              split noise, bit for bit
   5b. step    one training step of a ~2k-Gaussian scene at 160x120 on the
               card against the same step on the CPU
   6a. physics AlignFr3Env-v1 (obs_mode state_dict) at 1, 4 and 64 envs:
@@ -88,7 +98,15 @@ Phases (each prints a line; any failure exits non-zero before a result):
               reset(seed) with the same actions, every env's and camera's
               rgb and segmentation, every WorldState field, prev_target and
               the task state bit for bit, and emit and compositor vs plain
-              on a graph step's frames
+              on a graph step's frames; at 4 envs reset (4 seeds),
+              render_current_step and render() (after steps 5-8) through
+              the wrapper's graphs vs graph=False, interleaved: every
+              observation leaf, the overflow and the reset state bit for
+              bit, call k's outputs unchanged after call k + 1, ms per
+              call of each form, one emit and one compositor kernel per
+              reset and render replay by the profiler; at 64 envs the
+              memory reserved with the step, reset and render graphs
+              captured, in one shared pool and in a pool each
   6d. more    AlignFr3Env-v1 at 4 envs in pd_ee_delta_pos and
               pd_ee_delta_pose (IK inside the captured step): eager and
               graph steps, graph vs eager bit for bit (WorldState and
@@ -101,9 +119,10 @@ Phases (each prints a line; any failure exits non-zero before a result):
               cameras 640x480 (the xarm6_align scene at the bench sizes),
               eager and through the graph as 6c's, and its scanned loop
               as 6c's (tint and camera noise inside the
-              graph; scanned vs eager bit for bit); both kernels vs plain
-              on the 8 tinted frames of a scanned step; the tint moves
-              only pixels the objects reach
+              graph; scanned vs eager bit for bit); its reset and renders
+              through the graphs vs graph=False as 6c's; both kernels vs
+              plain on the 8 tinted frames of a scanned step; the tint
+              moves only pixels the objects reach
   7a. scans   the fr3_align synthetic scene written as the PLYs (and the
               labels .npy) that configs/fr3_align.json names, under a
               temporary directory; merge_scene_from_config equals the
@@ -138,13 +157,17 @@ Phases (each prints a line; any failure exits non-zero before a result):
               graph=False bit for bit with ms per step of both; the
               success table
   8b. replay  AlignFr3's and AlignXArm's recorded episodes replayed by
-              replay_h5 through the same wrappers: the recorded frames bit
-              for bit; both kernels vs plain on a replayed state's frames;
+              replay_h5 through the same wrappers (one render-graph call
+              per frame): the recorded frames bit for bit; both
+              kernels vs plain on a replayed state's frames;
               AlignFr3's first screw move (dry run) and its first 10
               steps, card against CPU
   8c. rrt     move_to_pose_with_RRTConnect around the spice rack placed on
-              the straight joint line (every path configuration free; the
-              checker's configurations per ms); an env state checkpoint
+              the straight joint line (every path configuration free),
+              every batch the RRT run checked through the checker's graphs
+              (one per batch size) bit for bit the eager checker's; the
+              checker's configurations per ms through its graph and
+              eagerly; an env state checkpoint
               round trip and GSWorldWrapper(log_state=True)'s bundles
   9a. shard   rollout_fps(shard=True) over env_mesh() (every visible card)
               at 4 envs x 2 cameras 640x480 for 30 steps, each shard
@@ -154,7 +177,8 @@ Phases (each prints a line; any failure exits non-zero before a result):
               shards on one card (dist.sharded.ShardedLoop over
               ["cuda:0", "cuda:0"]), and over every card where more than
               one is visible, against the unsharded loop from the
-              same reset(seed) and actions: step 1's frames (max |diff|
+              same reset(seed) (each shard through its reset graph) and
+              actions: the reset's and step 1's frames (max |diff|
               <= 1 count, segmentation >= 99.9% equal; the first field that
               differs, if any), every WorldState field within 1e-5 after
               10 steps, mean_across_envs of the reward within 1e-6 of the
@@ -241,6 +265,7 @@ SHARD_MEAN_TOL = 1e-6   # mean_across_envs against the unsharded mean
 SEG_AGREE_MIN = 0.999
 LOOP_STEPS_64 = 3
 SCAN_CHECK_STEPS = 10   # scanned vs eager, bit for bit (6c, 6d, 9a)
+RESET_REPS = 4          # resets and renders of each form (6c, 6d)
 SCAN_PROFILE_STEPS = 3  # scanned steps in the profiler's window
 PROFILE_MARGIN_S = 0.02  # host idle time at each edge of a profiler window
 EE_MODES = ("pd_ee_delta_pos", "pd_ee_delta_pose")
@@ -849,38 +874,82 @@ def check_outputs(out, B, H, W, ids_per_camera=True):
             raise AssertionError(f"{cam}: segmentation has < 3 ids")
 
 
+def render_outputs(out, overflow):
+    """{path: tensor} of a render's outputs and its overflow."""
+    return dict(obs_leaves(out), overflow=overflow)
+
+
 def phase_slice(renderer, states):
+    """4: the render step eagerly (the env's ``graph=False``) and through
+    the renderer's CUDA graph, PASSES passes over the same STEPS states in
+    one call: ms per render step, peak memory allocated and reserved of
+    each form; every state's rgb, segmentation and overflow of the graph
+    bit for bit the eager render's; one emit and one compositor kernel
+    per replay by the profiler -> (launch counts of the phase: the eager
+    renders and the graph's capture, the line, emit kernels per
+    replay)."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
-    cfg = renderer.raster_config
-    B, C = renderer.env.num_envs, len(renderer.env.cameras)
-    for st in states[:2]:                                  # warm-up
-        renderer.render(st)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    from gsworld_tpu_torch.utils.cuda_graph import FnGraph
+    env, cfg = renderer.env, renderer.raster_config
+    B, C = env.num_envs, len(env.cameras)
+    graph0 = env.graph
     rc.reset_launch_counts()
-    step_ms = []
-    for st in states * PASSES:
-        t0 = time.perf_counter()
-        out = renderer.render(st)
+    runs = {}
+    for graph in (False, True):
+        env.graph = graph
+        for st in states[:2]:      # warm-up (the graph's capture)
+            renderer.render(st)
         torch.cuda.synchronize()
-        step_ms.append(1000.0 * (time.perf_counter() - t0))
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, outs = [], []
+        for k, st in enumerate(states * PASSES):
+            t0 = time.perf_counter()
+            out = renderer.render(st)
+            torch.cuda.synchronize()
+            step_ms.append(1000.0 * (time.perf_counter() - t0))
+            if k >= len(states) * (PASSES - 1):
+                outs.append(render_outputs(out, renderer.last_overflow))
+        runs[graph] = (step_ms, outs, torch.cuda.max_memory_allocated(),
+                       torch.cuda.max_memory_reserved())
     counts = dict(rc.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    want = 2 + len(states) * PASSES + FnGraph.WARMUP + 1
     for name in ("emit_entries", "composite_tiles"):
-        if counts[name] <= 0:
-            raise AssertionError(f"slice: kernel {name} was never launched")
+        if counts[name] != want:
+            raise AssertionError(f"slice: kernel {name} launched "
+                                 f"{counts[name]} times (want {want}: the "
+                                 f"eager renders and the graph's capture)")
+    bad = [f"state {i} {k}" for i, (g, e) in enumerate(
+        zip(runs[True][1], runs[False][1])) for k in leaves_differ(g, e)]
+    if bad:
+        raise AssertionError(f"slice: the render graph differs from the "
+                             f"eager render in {bad[:8]} ({len(bad)} in all)")
     check_outputs(out, B, cfg.height, cfg.width)
+    prof_text, _, per = replay_kernels(
+        lambda: [renderer.render(st) for st in states[:3]], 3,
+        "render-graph replays (GSWorldRenderer.render)")
+    env.graph = graph0
     overflow = int(renderer.last_overflow.sum())
-    ms = statistics.median(step_ms)
-    line = (f"phase 4 slice: {renderer.scene.num_gaussians} Gaussians, {B} envs "
-        f"x {C} cams {cfg.width}x{cfg.height}: {ms:.3f} ms per render step "
-        f"(median of {len(step_ms)}; min {min(step_ms):.3f}, max "
-        f"{max(step_ms):.3f}), {1000.0 * B * C / ms:.2f} frames/s, "
-        f"overflow {overflow} entries in the last step, peak memory "
-        f"{peak / 2**30:.3f} GiB, launches {counts}")
+    parts = []
+    for graph, name in ((False, "eager (graph=False)"),
+                        (True, "graph (one replay per render step)")):
+        ms, _, peak, reserved = runs[graph]
+        med = statistics.median(ms)
+        parts.append(f"{name} {med:.3f} ms per render step (median of "
+                     f"{len(ms)}; min {min(ms):.3f}, max {max(ms):.3f}), "
+                     f"{1000.0 * B * C / med:.2f} frames/s, peak memory "
+                     f"{peak / 2**30:.3f} GiB allocated "
+                     f"({reserved / 2**30:.3f} reserved)")
+    med = {g: statistics.median(runs[g][0]) for g in runs}
+    line = (f"phase 4 slice: {renderer.scene.num_gaussians} Gaussians, {B} "
+            f"envs x {C} cams {cfg.width}x{cfg.height}: " + "; ".join(parts)
+            + f"; graph / eager {med[True] / med[False]:.3f}; the graph's "
+            f"rgb, segmentation and overflow bit for bit the eager render's "
+            f"on all {len(states)} states; {prof_text}; overflow {overflow} "
+            f"entries in the last step, launches {counts} (the eager renders "
+            f"and the graph's capture)")
     log(line)
-    return counts, line
+    return counts, line, per["emit_kernel"]
 
 
 def phase_profile(phase, what, step):
@@ -1164,7 +1233,8 @@ def train_run(setup, graph):
     from gsworld_tpu_torch.real2sim.pipeline import train_from_colmap_model
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.train3dgs.loss import psnr
-    from gsworld_tpu_torch.train3dgs.train import (TrainStepGraph,
+    from gsworld_tpu_torch.train3dgs.train import (DensifyGraph,
+                                                   TrainStepGraph,
                                                    render_trainable)
 
     what = "train (graph)" if graph else "train (eager)"
@@ -1204,13 +1274,14 @@ def train_run(setup, graph):
     rc.reset_launch_counts()
     TrainStepGraph.__call__ = counted
     try:
-        clock[0] = t0 = time.perf_counter()
-        scene, losses = train_from_colmap_model(
-            setup.points, setup.colors, cams, images, setup.cfg,
-            params=train_params(), iterations=TRAIN_ITERS,
-            capacity=setup.capacity, seed=SEED, device=setup.device,
-            callback=on_step, graph=graph)
-        wall = time.perf_counter() - t0
+        with counted_calls(DensifyGraph) as densify_calls:
+            clock[0] = t0 = time.perf_counter()
+            scene, losses = train_from_colmap_model(
+                setup.points, setup.colors, cams, images, setup.cfg,
+                params=train_params(), iterations=TRAIN_ITERS,
+                capacity=setup.capacity, seed=SEED, device=setup.device,
+                callback=on_step, graph=graph)
+            wall = time.perf_counter() - t0
     finally:
         TrainStepGraph.__call__ = replay
     counts = dict(rc.launch_counts)
@@ -1238,9 +1309,12 @@ def train_run(setup, graph):
             raise AssertionError(f"{what}: kernel {name} launched {n} times "
                                  f"from the host in {TRAIN_ITERS} iterations "
                                  f"(want {want})")
-    if calls[0] != (TRAIN_ITERS if graph else 0):
+    if calls[0] != (TRAIN_ITERS if graph else 0) or densify_calls[0] != (
+            len(densified_at) if graph else 0):
         raise AssertionError(f"{what}: the train-step graph was called "
-                             f"{calls[0]} times in {TRAIN_ITERS} iterations")
+                             f"{calls[0]} times in {TRAIN_ITERS} iterations, "
+                             f"the densify graph {densify_calls[0]} times "
+                             f"for {len(densified_at)} passes")
     prof_text, per = None, None
     if graph:
         prof_text, per = window_kernels(
@@ -1253,6 +1327,7 @@ def train_run(setup, graph):
     return dict(scene=scene, losses=losses, counts=counts, peak=peak,
                 psnr=hold_psnr, wall=wall, ms=ms, first=first, last=last,
                 densified_at=densified_at, replays=calls[0],
+                densify_replays=densify_calls[0],
                 prof_text=prof_text, per_replay=per)
 
 
@@ -1311,9 +1386,11 @@ def phase_train(setup):
             f"-> {r['scene'].num_gaussians} returned")
     log(line)
     prof_line = (f"phase 5 train graph: {r['replays']} calls of the "
-                 f"train-step graph in {n_it} iterations; {r['prof_text']}")
+                 f"train-step graph and {r['densify_replays']} of the "
+                 f"densify graph in {n_it} iterations; {r['prof_text']}")
     log(prof_line)
     step_line = train_step_graph_vs_eager(setup, r["scene"])
+    step_line += "; " + densify_graph_vs_eager(setup, r["scene"])
     profile_train(setup, r["scene"])
     return r["counts"], [line, step_line, prof_line], r["psnr"], \
         runs[False]["counts"], dict(replays=r["replays"],
@@ -1393,6 +1470,61 @@ def train_step_graph_vs_eager(setup, scene):
             f"graph step's loss and image unchanged after the next replay")
     log(line)
     return line
+
+
+def densify_graph_vs_eager(setup, scene):
+    """One densify pass through its CUDA graph (``DensifyGraph``) against
+    the eager pass, from one state (the trained scene at its capacity
+    after one eager train step, whose statistics ask for clones and
+    splits) with the same split noise: every scene field, the densify
+    state and the Adam moments bit for bit; ms of each (host clock to a
+    synchronize; the graph's call after its capture) -> text."""
+    import torch
+    from gsworld_tpu_torch.train3dgs.densify import densify_and_prune
+    from gsworld_tpu_torch.train3dgs.optim import zero_rows
+    from gsworld_tpu_torch.train3dgs.train import (DensifyGraph,
+                                                   _clone_train_state,
+                                                   _write_state,
+                                                   make_train_step)
+    from gsworld_tpu_torch.utils.cuda_graph import tree_map
+    cams, images = setup.split()
+    params = train_params()
+    base, _, _ = make_train_step(setup.cfg, params, graph=False)(
+        _train_state(setup, scene), cams[0], images[0])
+    pts = setup.points
+    kw = dict(grad_threshold=params.densify_grad_threshold,
+              percent_dense=params.percent_dense,
+              scene_extent=float(np.linalg.norm(
+                  pts.max(0) - pts.min(0)) / 2.0) or 1.0)
+    eager, graphed = _clone_train_state(base), _clone_train_state(base)
+    g = DensifyGraph(graphed, **kw)
+    gens = [torch.Generator(device=setup.device).manual_seed(SEED + 31)
+            for _ in range(2)]
+
+    def eager_pass():
+        sc, ds, changed = densify_and_prune(eager.scene, eager.ds, gens[0],
+                                            **kw)
+        zero_rows(eager.opt_state, changed)
+        _write_state(eager, sc, ds)
+
+    alive0 = int(base.ds.alive.sum())
+    t_e, _ = step_ms(eager_pass)
+    t_g, _ = step_ms(lambda: g(graphed, gens[1]))
+    leaves = []
+    tree_map(leaves.append, (eager, graphed))
+    n = len(leaves) // 2
+    differ = sum(not torch.equal(a, b) for a, b in zip(leaves[:n],
+                                                         leaves[n:]))
+    alive = int(graphed.ds.alive.sum())
+    if differ or alive == alive0:
+        raise AssertionError(f"5 densify: graph vs eager differ in {differ} "
+                             f"of {n} tensors; alive {alive0} -> {alive}")
+    return (f"one densify pass through its graph vs eager from the trained "
+            f"scene after one step (alive {alive0} -> {alive} of "
+            f"{setup.capacity}), the same split noise: all {n} tensors of "
+            f"the train state (scene, densify state, Adam moments) bit for "
+            f"bit; {t_g:.3f} ms through the graph, {t_e:.3f} eager (host "
+            f"clock to a synchronize)")
 
 
 def profile_train(setup, scene):
@@ -1709,6 +1841,7 @@ def phase_closed_loop():
     (graph=False), through the wrapper's CUDA graph (``step``: one replay
     per step) and scanned (``use_scan=True``: the same graph replayed
     with no host read between steps)."""
+    import gc
     import torch
     lines, counts4, scan4 = [], None, None
     for B, steps in ((NUM_ENVS, LOOP_STEPS), (1, LOOP_STEPS),
@@ -1741,9 +1874,58 @@ def phase_closed_loop():
                     + graph_vs_eager(wrapper, "6c closed loop"))
             log(line)
             lines.append(line)
+            reset_text, reset4 = reset_render_vs_eager(wrapper,
+                                                       "6c closed loop")
+            line = f"phase 6c reset and render, {B} envs: {reset_text}"
+            log(line)
+            lines.append(line)
+        shared = graphs_reserved(env, wrapper) if B == 64 else None
         del env, wrapper
+        gc.collect()
         torch.cuda.empty_cache()
+        if shared:
+            line = graph_pool_memory(B, shared)
+            log(line)
+            lines.append(line)
+    scan4["reset_per_replay"] = reset4
     return counts4, scan4, lines
+
+
+def graphs_reserved(env, wrapper):
+    """``memory_reserved`` and ``memory_allocated`` once the wrapper's
+    step, reset and render graphs are all captured, the cache's free
+    blocks released."""
+    import torch
+    if wrapper._reset_graph is None:
+        wrapper.reset(seed=SEED)
+    if wrapper._step_graph is None:
+        wrapper.step(env.action_space_sample())
+    wrapper.render_current_step()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+
+def graph_pool_memory(B, shared):
+    """6c at ``B`` envs: ``graphs_reserved`` of the 6c wrapper (``shared``:
+    its graphs share the env's pool, ``graph_pool``) beside that of a
+    fresh wrapper whose graphs each have a pool of their own (its env's
+    ``graph_pool`` replaced by one that gives None) -> the phase's line."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    env, wrapper = bench_build("AlignFr3Env-v1", B, "fr3_align")
+    env.graph_pool = lambda: None
+    own = graphs_reserved(env, wrapper)
+    del env, wrapper
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"phase 6c graph memory, {B} envs, the step, reset and render "
+            f"graphs captured: {shared[0] / 2**30:.3f} GiB reserved "
+            f"({shared[1] / 2**30:.3f} allocated) with one pool for the "
+            f"wrapper's graphs, {own[0] / 2**30:.3f} GiB reserved "
+            f"({own[1] / 2**30:.3f} allocated) with a pool for each graph "
+            f"({time.perf_counter() - t0:.1f} s)")
 
 
 def check_frames_follow_state(wrapper):
@@ -1950,7 +2132,11 @@ def phase_xarm_loop():
                  "inside the graph): " + graph_vs_eager(
                      wrapper, "6d xArm closed loop", tint=True))
     log(scan_line)
-    return counts, [line, scan_line], wrapper
+    reset_line = ("phase 6d xArm reset and render (tint and camera noise "
+                  "inside the graphs): " + reset_render_vs_eager(
+                      wrapper, "6d xArm closed loop")[0])
+    log(reset_line)
+    return counts, [line, scan_line, reset_line], wrapper
 
 
 def check_tint(wrapper):
@@ -2134,9 +2320,9 @@ def replay_kernels(run, calls, what, names=("emit_kernel",
     """torch.profiler over ``run()``, which makes ``calls`` calls that
     replay CUDA graphs (scanned steps, steps, sharded steps): exactly
     ``per_call`` kernels of each of ``names`` per call by the kernels'
-    names, and ``d2h`` copies from the device to the host in all; a
-    window that shows another count raises.  The launch counters do not
-    see replays.  ``check(out)``, when given, holds what the replays
+    names, and ``d2h`` copies from the device to the host in all (None:
+    any number, printed); a window that shows another count raises.
+    The launch counters do not see replays.  ``check(out)``, when given, holds what the replays
     returned against eager steps -> (equal, text): unequal raises, and a
     wrong count's error says whether the outputs were right (the
     profiler lost a kernel's record) or not (a replay did not run).  The
@@ -2178,7 +2364,8 @@ def window_kernels(prof, calls, what, names, per_call, d2h, wall,
 
     got = {w: count(w) for w in names}
     copies = count("DtoH")
-    if any(v != per_call * calls for v in got.values()) or copies != d2h:
+    if any(v != per_call * calls for v in got.values()) or (
+            d2h is not None and copies != d2h):
         raise AssertionError(f"{what}: {calls} calls ran kernels {got} "
                              f"(want {per_call} of each per call) and "
                              f"{copies} copies to the host (want {d2h})"
@@ -2333,10 +2520,13 @@ def scanned_loop(wrapper, what, steps):
     from gsworld_tpu_torch.rollout.random_actions import (SCAN_REPS,
                                                           rollout_fps)
     from gsworld_tpu_torch.envs.base import StepGraph
+    from gsworld_tpu_torch.utils.cuda_graph import FnGraph
     env = wrapper.env
     cam = env.cameras[0]
-    want = 1 + (0 if wrapper._step_graph is not None
-                else StepGraph.WARMUP + 1)
+    # the captures the reset and the first scanned step make, if not made
+    want = ((0 if wrapper._reset_graph is not None else FnGraph.WARMUP + 1)
+            + (0 if wrapper._step_graph is not None
+               else StepGraph.WARMUP + 1))
     before = {}
 
     def timed_start():
@@ -2357,8 +2547,9 @@ def scanned_loop(wrapper, what, steps):
         if before[name] != want or rc.launch_counts[name]:
             raise AssertionError(
                 f"{what}: {name} launched {before[name]} times before the "
-                f"timed reps (want {want}: the reset's render and the "
-                f"capture) and {rc.launch_counts[name]} in them (want 0)")
+                f"timed reps (want {want}: the captures of the reset and "
+                f"step graphs not made before) and {rc.launch_counts[name]} "
+                f"in them (want 0)")
     check_finite(env.state.world, what)
     prof_text, per_replay = scan_kernels(wrapper, what)
     text = (f"scanned (rollout_fps(use_scan=True): one CUDA graph replay "
@@ -2366,8 +2557,8 @@ def scanned_loop(wrapper, what, steps):
             f"{1000.0 * spf:.3f} ms per step, {fps:.2f} env-steps/s, peak "
             f"memory {peak / 2**30:.3f} GiB allocated "
             f"({reserved / 2**30:.3f} reserved), frames {frames.shape}, "
-            f"launch counters {want} before the timed reps (reset, "
-            f"capture) and 0 in them; {prof_text}")
+            f"launch counters {want} before the timed reps (the captures "
+            f"not made before) and 0 in them; {prof_text}")
     return 1000.0 * spf, text, dict(before, per_replay=per_replay)
 
 
@@ -2462,6 +2653,83 @@ def graph_vs_eager(wrapper, what, tint=False):
             f"the eager steps' bit for bit; emit and compositor vs plain "
             f"on a graph step's frames within phase 3's gates (lines "
             f"above)")
+
+
+def reset_render_vs_eager(wrapper, what):
+    """``reset``, ``render_current_step`` and ``render()`` through the
+    wrapper's CUDA graphs against ``graph=False``, interleaved: reset(SEED
+    + k) for RESET_REPS seeds, then both renders after 5 steps and after
+    each of RESET_REPS - 1 more: every observation leaf (sensor data
+    included), the overflow and the state after a reset bit for bit, and
+    what call k returned unchanged after call k + 1; ms per call of each
+    form (calls 2 on); one emit and one compositor kernel per reset and
+    render replay by the profiler -> (text, emit kernels per reset
+    replay)."""
+    import torch
+    from gsworld_tpu_torch.envs.base import _state_tensors
+    env, r = wrapper.env, wrapper.renderer
+    graph0 = env.graph
+    ms, bad, prev = {}, [], []
+
+    def call(name, graph, fn):
+        env.graph = graph
+        t, out = step_ms(fn)
+        ms.setdefault((name.split()[0], graph), []).append(t)
+        leaves = {}
+        if isinstance(out, tuple):          # reset: (obs, info), the state
+            out = out[0]
+            leaves = {f"state/{k}": v.clone()
+                      for k, v in _state_tensors(env.state)}
+        if isinstance(out, torch.Tensor):   # render(): the rgb
+            out = {"rgb": out}
+        return dict(obs_leaves(out), overflow=r.last_overflow.clone(),
+                    **leaves)
+
+    def compare(name, fn):
+        e, g = call(name, False, fn), call(name, True, fn)
+        bad.extend(f"{name}: {k}" for k in leaves_differ(g, e))
+        if prev:
+            bad.extend(f"{prev[0]}'s {k} changed by {name}"
+                       for k in leaves_differ(prev[1], prev[2]))
+        prev[:] = [name, g, {k: v.clone() for k, v in g.items()}]
+
+    try:
+        for k in range(RESET_REPS):
+            compare(f"reset {SEED + k}", lambda: wrapper.reset(seed=SEED + k))
+        gen = torch.Generator().manual_seed(SEED + 29)
+        for k in range(5 + RESET_REPS - 1):
+            wrapper.step(env.action_space_sample(gen))
+            if k >= 4:
+                compare(f"render_current_step after step {k + 1}",
+                        wrapper.render_current_step)
+                compare(f"render() after step {k + 1}", wrapper.render)
+        if bad:
+            raise AssertionError(f"{what}: reset and render graphs vs "
+                                 f"eager: {bad[:8]} ({len(bad)} in all)")
+        reset_text, _, per = replay_kernels(
+            lambda: [wrapper.reset(seed=SEED) for _ in range(2)], 2,
+            f"reset-graph replays ({what})", d2h=None)
+        render_text, _, _ = replay_kernels(
+            lambda: [wrapper.render_current_step(), wrapper.render()], 2,
+            f"render-graph replays, the sensor cameras and the human view "
+            f"({what})")
+    finally:
+        env.graph = graph0
+
+    def med(name, graph):
+        return statistics.median(ms[name, graph][1:])
+
+    times = ", ".join(
+        f"{name} {med(name, True):.3f} graph / {med(name, False):.3f} eager"
+        for name in ("reset", "render_current_step", "render()"))
+    text = (f"reset through its graph vs graph=False over seeds "
+            f"{SEED}-{SEED + RESET_REPS - 1}, render_current_step and "
+            f"render() after steps 5-{5 + RESET_REPS - 1}: every observation "
+            f"leaf (sensor data included), the overflow and the reset state "
+            f"bit for bit, call k's outputs unchanged after call k + 1; ms "
+            f"per call (host clock to a synchronize, medians of calls 2 on) "
+            f"{times}; {reset_text}; {render_text}")
+    return text, per["emit_kernel"]
 
 
 def phase_scan_loop(tmp, device="cuda"):
@@ -2644,7 +2912,8 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.render.rasterize import render as gs_render
     from gsworld_tpu_torch.train3dgs.loss import psnr
-    from gsworld_tpu_torch.train3dgs.train import (TrainStepGraph,
+    from gsworld_tpu_torch.train3dgs.train import (DensifyGraph,
+                                                   TrainStepGraph,
                                                    render_trainable)
     from gsworld_tpu_torch.wrapper.gs_env import world_poses
 
@@ -3024,6 +3293,7 @@ def collect_task(env_id, cfg_name, out_dir):
     from gsworld_tpu_torch.envs.base import StepGraph
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.rollout.run_with_gs import collect
+    from gsworld_tpu_torch.utils.cuda_graph import FnGraph
     rc.reset_launch_counts()
     t0 = time.perf_counter()
     with DemoProbes() as probes:
@@ -3055,11 +3325,13 @@ def collect_task(env_id, cfg_name, out_dir):
             raise AssertionError(f"8a {env_id}: recorded frames "
                                  f"{None if frames is None else frames.shape}")
     renders = steps + probes.resets
-    # the steps replay the wrapper's graph: the host counters see the
-    # resets' renders and the capture (its warm-up steps and itself)
+    # the resets and steps replay the wrapper's graphs: the host counters
+    # see their captures (the warm-up calls and the capture itself)
     if steps and wrapper._step_graph is None:
         raise AssertionError(f"8a {env_id}: stepped without the graph")
-    captured = probes.resets + (StepGraph.WARMUP + 1 if steps else 0)
+    if wrapper._reset_graph is None:
+        raise AssertionError(f"8a {env_id}: reset without the graph")
+    captured = FnGraph.WARMUP + 1 + (StepGraph.WARMUP + 1 if steps else 0)
     for name in ("emit_entries", "composite_tiles"):
         if counts[name] != captured:
             raise AssertionError(f"8a {env_id}: {name} launched "
@@ -3090,7 +3362,8 @@ def collect_task(env_id, cfg_name, out_dir):
             f"waypoint (median {res['ik_p50_ms']:.2f}) over {ik['count']} "
             f"waypoints, {ik['count'] * res['ik_ms'] / 1e3:.1f} s in all; "
             f"max overflow {probes.overflow} entries per frame; host "
-            f"launches {counts} for {probes.resets} resets and the capture; "
+            f"launches {counts} for the captures of the reset and step "
+            f"graphs ({probes.resets} resets); "
             f"{prof_text}; {DEMO_CHECK_STEPS} more steps from the episode's "
             f"end, through the graph vs graph=False interleaved, bit for "
             f"bit in everything they return and the state: {ms_g:.3f} ms "
@@ -3130,8 +3403,8 @@ def phase_demo_replay(results, wrappers):
     the same wrappers (frames bit for bit), both kernels against their
     plain versions on a replayed state's frames, and AlignFr3's first
     screw move and first steps on the card against the CPU."""
-    import torch
     from gsworld_tpu_torch.rollout.replay import replay_h5
+    from gsworld_tpu_torch.utils.cuda_graph import FnGraph
     from gsworld_tpu_torch.wrapper.gs_env import world_poses
     lines = []
     for env_id in DEMO_REPLAY:
@@ -3140,8 +3413,12 @@ def phase_demo_replay(results, wrappers):
             raise AssertionError(f"8b {env_id}: its plan failed, nothing "
                                  f"to replay")
         t0 = time.perf_counter()
-        frames = replay_h5(wrapper, res["h5"])
+        with counted_calls(FnGraph) as calls:
+            frames = replay_h5(wrapper, res["h5"])
         dt = time.perf_counter() - t0
+        if calls[0] != len(frames) or not wrapper.renderer._render_graphs:
+            raise AssertionError(f"8b {env_id}: {calls[0]} render-graph "
+                                 f"calls for {len(frames)} frames")
         want = res["frames"][1:]
         if frames.shape != want.shape or not np.array_equal(frames, want):
             bad = (int((frames != want).any(-1).sum())
@@ -3152,7 +3429,8 @@ def phase_demo_replay(results, wrappers):
         phase_kernels(wrapper.renderer, world_poses(st.world, st.task),
                       phase="8b", timed=False)
         line = (f"phase 8b replay {env_id}: replay_h5 of the recorded "
-                f"episode renders its {len(frames)} step frames bit for bit "
+                f"episode renders its {len(frames)} step frames through "
+                f"the render graph ({calls[0]} calls) bit for bit "
                 f"the recorded video's ({dt:.1f} s, "
                 f"{1e3 * dt / len(frames):.2f} ms per frame); emit and "
                 f"compositor vs plain on the last replayed state's frames "
@@ -3161,6 +3439,29 @@ def phase_demo_replay(results, wrappers):
         lines.append(line)
     lines.append(demo_card_vs_cpu())
     return lines
+
+
+class counted_calls:
+    """``with counted_calls(cls) as n:`` counts the calls of instances of
+    ``cls`` (graph classes) in ``n[0]``; restores ``cls.__call__`` on
+    exit."""
+
+    def __init__(self, cls):
+        self.cls, self.n = cls, [0]
+
+    def __enter__(self):
+        call, n = self.cls.__call__, self.n
+        self.orig = call
+
+        def counted(graph, *a, **kw):
+            n[0] += 1
+            return call(graph, *a, **kw)
+
+        self.cls.__call__ = counted
+        return n
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
 
 
 class _StopEpisode(Exception):
@@ -3279,20 +3580,33 @@ def phase_demo_rrt(tmp):
     env._state = env.state.replace(world=w.replace(a_pos=a_pos))
     check = rrt.make_collision_checker(env)
     args = (a_pos[0], w.a_quat[0], w.root_pos[0], w.root_quat[0])
-    paths = []
-    plan = rrt.rrt_connect
+    paths, checkers, batches = [], [], []
+    plan, made = rrt.rrt_connect, rrt.make_collision_checker
 
     def kept(*a, **kw):
         paths.append(plan(*a, **kw))
         return paths[-1]
 
-    rrt.rrt_connect = kept
+    def recorded(*a, **kw):
+        # every batch the RRT run checks, with its answer
+        chk = made(*a, **kw)
+        checkers.append(chk)
+
+        def rec(q, *args):
+            out = chk(q, *args)
+            batches.append((np.array(q), [x.clone() for x in args],
+                            out.clone()))
+            return out
+
+        return rec
+
+    rrt.rrt_connect, rrt.make_collision_checker = kept, recorded
     t0 = time.perf_counter()
     try:
         res = planner.move_to_pose_with_RRTConnect(
             p_goal.cpu().numpy(), q_goal.cpu().numpy())
     finally:
-        rrt.rrt_connect = plan
+        rrt.rrt_connect, rrt.make_collision_checker = plan, made
     dt = time.perf_counter() - t0
     if res == -1 or not paths or paths[0] is None:
         raise AssertionError("8c: RRT-Connect found no path")
@@ -3306,14 +3620,36 @@ def phase_demo_rrt(tmp):
     lim = torch.as_tensor(env.agent.model.qlimits, dtype=torch.float32)
     batch = (lim[:, 0] + (lim[:, 1] - lim[:, 0])
              * torch.rand((RRT_BATCH, lim.shape[0]), generator=gen)).to(env.device)
+    # the RRT run's checks went through the checker's graphs (one per
+    # batch size); each batch again through the eager checker, bit for bit
+    captures = sorted(m for c in checkers for m in c.graphs)
+    if not checkers or not captures:
+        raise AssertionError("8c: the RRT run checked without a graph")
+    env.graph = False
+    try:
+        differ = [i for i, (q, a, out) in enumerate(batches)
+                  if not torch.equal(checkers[0](q, *a), out)]
+        eager_ms = cuda_ms(lambda: check(batch, *args), reps=10)
+    finally:
+        env.graph = True
+    if differ:
+        raise AssertionError(f"8c: the checker's graphs and the eager "
+                             f"checker differ on batches {differ[:8]} of "
+                             f"{len(batches)}")
     check_ms = cuda_ms(lambda: check(batch, *args), reps=10)
     line = (f"phase 8c RRT: move_to_pose_with_RRTConnect from the AlignFr3 "
             f"reset to the TCP pose of joint 1 turned by {RRT_SWING} rad, the "
             f"spice rack where the straight joint line passes (blocked): a "
             f"path of {len(path)} densified configurations, every one free "
-            f"by the checker, planned and followed in {dt:.2f} s; the checker "
-            f"does {RRT_BATCH / check_ms:.1f} configurations per ms "
-            f"({check_ms:.3f} ms for {RRT_BATCH})")
+            f"by the checker, planned and followed in {dt:.2f} s; the RRT "
+            f"run checked {len(batches)} batches of "
+            f"{min(len(q) for q, _, _ in batches)}-"
+            f"{max(len(q) for q, _, _ in batches)} configurations through "
+            f"{len(captures)} checker graphs (one captured per batch size), "
+            f"every answer bit for bit the eager checker's; the checker "
+            f"does {RRT_BATCH / check_ms:.1f} configurations per ms through "
+            f"its graph ({check_ms:.3f} ms for {RRT_BATCH}), "
+            f"{RRT_BATCH / eager_ms:.1f} eager ({eager_ms:.3f} ms)")
     log(line)
 
     state = env.state
@@ -3413,8 +3749,16 @@ def shard_vs_unsharded(env, wrapper, mesh):
     t0 = time.perf_counter()
     n = len(mesh)
     loop = ShardedLoop(wrapper, mesh)
-    wrapper.reset(seed=SEED)
-    loop.reset(seed=SEED)
+    reset_u, _ = wrapper.reset(seed=SEED)
+    reset_s, _ = loop.reset(seed=SEED)
+    # every shard reset through its wrapper's reset graph
+    if not all(sh._reset_graph is not None for sh in loop.shards):
+        raise AssertionError("9a: a shard reset without its graph")
+    reset_differ, reset_err, reset_agree = obs_vs_unsharded(reset_u,
+                                                            reset_s)
+    if reset_err > 1 or reset_agree < SEG_AGREE_MIN:
+        raise AssertionError(f"9a: the reset's frames differ by {reset_err} "
+                             f"counts, segmentation {reset_agree}")
     gen = torch.Generator().manual_seed(SEED)
     ms_u, ms_s, first = [], [], None
     for i in range(SHARD_STEPS):
@@ -3433,17 +3777,8 @@ def shard_vs_unsharded(env, wrapper, mesh):
             ms_u.append(t_u)
             ms_s.append(t_s)
     (obs_u, *_), (obs_s, *_) = first
-    leaves_u = dict(obs_leaves(obs_u))
-    differ = [k for k, v in obs_leaves(obs_s)
-              if not torch.equal(v.to(leaves_u[k].device), leaves_u[k])]
-    rgb_err, seg_agree = 0, []
-    for c in obs_u["sensor_data"]:
-        su, ss = obs_u["sensor_data"][c], obs_s["sensor_data"][c]
-        rgb_err = max(rgb_err, int((su["rgb"].int() - ss["rgb"].int())
-                                   .abs().max()))
-        seg_agree.append(float((su["segmentation"] == ss["segmentation"])
-                               .float().mean()))
-    if rgb_err > 1 or min(seg_agree) < SEG_AGREE_MIN:
+    differ, rgb_err, seg_agree = obs_vs_unsharded(obs_u, obs_s)
+    if rgb_err > 1 or seg_agree < SEG_AGREE_MIN:
         raise AssertionError(f"9a: step 1 frames differ by {rgb_err} "
                              f"counts, segmentation {seg_agree}")
     wd = world_diff(loop.state.world, env.state.world)
@@ -3466,12 +3801,18 @@ def shard_vs_unsharded(env, wrapper, mesh):
     b = NUM_ENVS // n
     line = (f"phase 9a {n} shards on {[str(d) for d in mesh]} "
             f"({' + '.join([str(b)] * n)} envs) vs the unsharded "
-            f"{NUM_ENVS}-env loop from reset({SEED}), same actions: step 1 "
+            f"{NUM_ENVS}-env loop from reset({SEED}), same actions: the "
+            f"reset through each shard's reset graph "
+            + ("every observation bit for bit" if not reset_differ else
+               f"first differing observation field {reset_differ[0]} "
+               f"({len(reset_differ)} fields)")
+            + f", frames max |diff| {reset_err} counts, segmentation equal "
+            f"{reset_agree:.6f}; step 1 "
             + ("every observation bit for bit" if not differ else
                f"first differing observation field {differ[0]} "
                f"({len(differ)} fields)")
             + f", frames max |diff| {rgb_err} counts, segmentation equal "
-            f"{min(seg_agree):.6f}; WorldState after {SHARD_STEPS} steps "
+            f"{seg_agree:.6f}; WorldState after {SHARD_STEPS} steps "
             + ("bit for bit" if state_first is None else
                f"first differing field {state_first}, max |diff| "
                f"{max(d for _, d in wd.values()):.3g}")
@@ -3485,6 +3826,24 @@ def shard_vs_unsharded(env, wrapper, mesh):
             f"({time.perf_counter() - t0:.1f} s)")
     log(line)
     return line, r_s
+
+
+def obs_vs_unsharded(obs_u, obs_s):
+    """An unsharded and a sharded observation -> (paths that differ,
+    frames' max |diff| in counts, least segmentation agreement over the
+    cameras)."""
+    import torch
+    leaves_u = dict(obs_leaves(obs_u))
+    differ = [k for k, v in obs_leaves(obs_s)
+              if not torch.equal(v.to(leaves_u[k].device), leaves_u[k])]
+    rgb_err, seg_agree = 0, []
+    for c in obs_u["sensor_data"]:
+        su, ss = obs_u["sensor_data"][c], obs_s["sensor_data"][c]
+        rgb_err = max(rgb_err, int((su["rgb"].int() - ss["rgb"].int())
+                                   .abs().max()))
+        seg_agree.append(float((su["segmentation"] == ss["segmentation"])
+                               .float().mean()))
+    return differ, rgb_err, min(seg_agree)
 
 
 def shard_scan_vs_unsharded(env, wrapper, mesh):
@@ -3764,8 +4123,11 @@ def main(argv=None):
     if args.kernels_only:
         log(json.dumps({"kernels": kernels}))
         return           # a partial run prints no result line
-    counts, slice_line = phase_slice(renderer, states)
+    counts, slice_line, render_per_replay = phase_slice(renderer, states)
+    # the eager render's stages (a replay shows kernels only)
+    renderer.env.graph = False
     phase_profile(4, "render", lambda i: renderer.render(states[i]))
+    renderer.env.graph = True
     phase_small_agreement()
     (train_counts, train_lines, psnr5, eager_train_counts,
      train_graph) = phase_train(setup)
@@ -3812,6 +4174,11 @@ def main(argv=None):
             k["scanned_loop_launches_before_replays"] = scan_counts[
                 k["name"]]
             k["scanned_loop_kernels_per_replay"] = scan_counts["per_replay"]
+            # the render graph's (phase 4) and the wrapper's reset graph's
+            # (6c) kernels of each name per replay, by the profiler
+            k["render_graph_kernels_per_replay"] = render_per_replay
+            k["reset_graph_kernels_per_replay"] = scan_counts[
+                "reset_per_replay"]
             k["xarm_loop_launches"] = xarm_counts[k["name"]]
             k["scan_loop_launches"] = scans["scan_loop"][k["name"]]
             k["real2sim_loop_launches"] = scans["real2sim_loop"][k["name"]]

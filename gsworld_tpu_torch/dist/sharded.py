@@ -9,17 +9,17 @@ wrapper) per mesh device, each stepping its own block of rows.
 Env i of the sharded loop starts and steps exactly as env i of the loop
 it was made from: ``reset(seed)`` draws the whole batch's episode numbers
 once on the CPU and hands each shard its rows, and actions are drawn once
-for the whole batch and split by rows.  Each shard steps with its device
-current, so shards on different cards run side by side through
-asynchronous launches.  Observations come back on the mesh's first device
-in env order.  ``loop.scan_steps(actions)`` is the scanned loop of the
-split: on the card each shard replays its wrapper's CUDA graph of the
-whole step, one host call per shard and step.
+for the whole batch and split by rows.  Each shard resets and steps with
+its device current (on a graphed card through its wrapper's or env's
+reset and step graphs), so shards on different cards run side by side
+through asynchronous launches.  Observations come back on the mesh's
+first device in env order.  ``loop.scan_steps(actions)`` is the scanned
+loop of the split: on the card each shard replays its wrapper's CUDA
+graph of the whole step, one host call per shard and step.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
@@ -31,14 +31,8 @@ from gsworld_tpu_torch.dist.mesh import (
     shard_env_axis,
 )
 from gsworld_tpu_torch.envs.base import GsBaseEnv
+from gsworld_tpu_torch.utils.cuda_graph import device_guard
 from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
-
-
-def _device_guard(device: torch.device):
-    """The device made current for CUDA work; nothing for the CPU."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 class ShardedLoop:
@@ -105,13 +99,9 @@ class ShardedLoop:
         draws = [d.tensor_split(n) for d in self.env.reset_draws(seed)]
         out = []
         for i, (shard, dev) in enumerate(zip(self.shards, self.mesh)):
-            e = self._shard_env(shard)
-            with _device_guard(dev):
-                e._state, obs = e._reset_fn(*(d[i] for d in draws))
-                obs = dict(obs)
-                if self._wrapped:
-                    obs["sensor_data"] = shard.render_current_step()
-            out.append(obs)
+            # each shard's reset graph (wrapper or env) on a graphed card
+            with device_guard(dev):
+                out.append(shard._reset_from_draws(*(d[i] for d in draws)))
         return self._gather(out), {}
 
     def step(self, action):
@@ -121,7 +111,7 @@ class ShardedLoop:
         parts = shard_env_axis(action, self.mesh)
         outs = []
         for shard, dev, a in zip(self.shards, self.mesh, parts):
-            with _device_guard(dev):
+            with device_guard(dev):
                 outs.append(shard.step(a))
         return tuple(self._gather([o[k] for o in outs]) for k in range(5))
 

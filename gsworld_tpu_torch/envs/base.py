@@ -20,8 +20,13 @@ well.
 On a CUDA device ``step`` replays one CUDA graph of the whole step
 (``StepGraph`` of ``_step_fn``: physics, observation, reward), captured
 at the first step (``graph=True``, the default), as the JAX package runs
-its jitted step; ``graph=False`` steps eagerly, and on the CPU there is
-nothing to capture and ``graph`` is ignored.
+its jitted step.  ``reset`` is split in two: the host layout
+(``_reset_layout``: the draws, the episode, domain randomization and the
+EnvState, built on the CPU and copied to the device once) and the device
+tail (``_reset_tail``: the observation of that state), which a graphed
+env replays as one CUDA graph (``reset_graph``, the JAX package's jitted
+reset).  ``graph=False`` steps and resets eagerly, and on the CPU there
+is nothing to capture and ``graph`` is ignored.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from gsworld_tpu_torch.physics.world import (
     world_state_from_numpy,
     world_state_to_numpy,
 )
-from gsworld_tpu_torch.utils.cuda_graph import capture
+from gsworld_tpu_torch.utils.cuda_graph import FnGraph, capture, clone_tree
 
 # SAPIEN camera convention -> OpenCV
 SAPIEN2OPENCV = np.array([
@@ -205,15 +210,6 @@ def _copy_state(dst: EnvState, src: EnvState):
             d.copy_(s)
 
 
-def _clone_tree(x):
-    """``x`` (tensors in nested dicts and tuples) in tensors of its own."""
-    if isinstance(x, dict):
-        return {k: _clone_tree(v) for k, v in x.items()}
-    if isinstance(x, tuple):
-        return tuple(_clone_tree(v) for v in x)
-    return x.clone() if isinstance(x, torch.Tensor) else x
-
-
 class StepGraph:
     """A whole step captured into one CUDA graph, the counterpart of the
     JAX package's ``_jit_step``: ``step_fn(state, action) -> (state, obs,
@@ -230,16 +226,16 @@ class StepGraph:
     their own, as ``step_fn`` would.  Kernels' host launch counts move at
     capture only.
 
-    Captured by ``utils.cuda_graph.capture`` after WARMUP steps on clones
-    of the state, which fill every lazy cache (a kernel build, the camera
-    constants, the scene tensors) outside the capture and leave the
-    caller's state as it was.  A failed capture raises: nothing falls back
-    to the eager step."""
+    Captured by ``utils.cuda_graph.capture`` (in ``pool`` when given)
+    after WARMUP steps on clones of the state, which fill every lazy cache
+    (a kernel build, the camera constants, the scene tensors) outside the
+    capture and leave the caller's state as it was.  A failed capture
+    raises: nothing falls back to the eager step."""
 
     WARMUP = 2
 
     def __init__(self, step_fn, device, state: EnvState, action,
-                 what: str = "the step"):
+                 what: str = "the step", pool=None):
         self.device = device
         self.state = _clone_state(state)
         self.action = action.clone()
@@ -255,7 +251,7 @@ class StepGraph:
             return out
 
         with torch.no_grad():
-            self.graph, out = capture(body, warm, device, what)
+            self.graph, out = capture(body, warm, device, what, pool=pool)
         (_, self.obs, self.reward, self.terminated, self.truncated,
          self.info) = out
 
@@ -281,7 +277,7 @@ class StepGraph:
         self.load(state)
         self.replay(action)
         with torch.cuda.device(self.device):
-            return (_clone_state(self.state), *_clone_tree(
+            return (_clone_state(self.state), *clone_tree(
                 (self.obs, self.reward, self.terminated, self.truncated,
                  self.info)))
 
@@ -348,6 +344,8 @@ class GsBaseEnv:
             self._default_human_render_camera_configs())
         self._cam_consts: Dict[Any, Any] = {}
         self._step_graph: Optional[StepGraph] = None
+        self._reset_graph: Optional[FnGraph] = None
+        self._graph_pool = None
         self._state: Optional[EnvState] = None
         self._action_gen: Optional[torch.Generator] = None
 
@@ -474,12 +472,12 @@ class GsBaseEnv:
                 "task": state.task}
 
     @torch.no_grad()
-    def _reset_fn(self, draws: torch.Tensor,
-                  dr_draws: Optional[torch.Tensor] = None):
-        """``draws`` (B, episode_draws), ``dr_draws`` (B, dr_draws) ->
-        (EnvState, obs).  The episode is laid out where the draws are (the
-        CPU, for ``reset``) and copied to the env's device once, so it is
-        the same episode on every device."""
+    def _reset_layout(self, draws: torch.Tensor,
+                      dr_draws: Optional[torch.Tensor] = None) -> EnvState:
+        """The host part of a reset: ``draws`` (B, episode_draws) and
+        ``dr_draws`` (B, dr_draws) -> the EnvState of the episode, laid
+        out where the draws are (the CPU, for ``reset``) and copied to the
+        env's device once, so it is the same episode on every device."""
         scene = self.scene
         host = draws.device
         ep = self._initialize_episode(draws)
@@ -506,12 +504,24 @@ class GsBaseEnv:
         world = WorldState(**{f: (None if getattr(world, f) is None
                                   else getattr(world, f).to(dev))
                               for f in WORLD_FIELDS})
-        state = EnvState(world=world,
-                         elapsed=torch.zeros(Bn, dtype=torch.int32,
-                                             device=dev),
-                         prev_target=world.qpos.clone(),
-                         task={k: v.to(dev) for k, v in task.items()})
-        return state, self._observations(state, self._env_data(state))[0]
+        return EnvState(world=world,
+                        elapsed=torch.zeros(Bn, dtype=torch.int32,
+                                            device=dev),
+                        prev_target=world.qpos.clone(),
+                        task={k: v.to(dev) for k, v in task.items()})
+
+    @torch.no_grad()
+    def _reset_tail(self, state: EnvState):
+        """The device part of a reset: the observation of the laid-out
+        ``state`` (one FK)."""
+        return self._observations(state, self._env_data(state))[0]
+
+    def _reset_fn(self, draws: torch.Tensor,
+                  dr_draws: Optional[torch.Tensor] = None):
+        """``draws`` (B, episode_draws), ``dr_draws`` (B, dr_draws) ->
+        (EnvState, obs): ``_reset_layout`` then ``_reset_tail``."""
+        state = self._reset_layout(draws, dr_draws)
+        return state, self._reset_tail(state)
 
     def _physics(self, world: WorldState, prev_target, action):
         """PD targets of ``action`` and one control step."""
@@ -679,8 +689,44 @@ class GsBaseEnv:
     def reset(self, seed: Optional[int] = None, options: Optional[dict] = None):
         seed = 0 if seed is None else seed
         self._action_gen = torch.Generator().manual_seed(seed + 1)
-        self._state, obs = self._reset_fn(*self.reset_draws(seed))
-        return obs, {}
+        return self._reset_from_draws(*self.reset_draws(seed)), {}
+
+    def _reset_from_draws(self, draws, dr_draws):
+        """A reset from its draws: the host layout, then the observation
+        through the reset graph on a graphed env (eagerly otherwise); the
+        env takes the new state -> obs."""
+        state = self._reset_layout(draws, dr_draws)
+        obs = (self.reset_graph(state)(state) if self._graphed()
+               else self._reset_tail(state))
+        self._state = state
+        return obs
+
+    def reset_graph(self, state: EnvState) -> FnGraph:
+        """The device tail of a reset (``_reset_tail``) as one CUDA graph
+        (an ``FnGraph`` on a static EnvState), captured at the first call
+        from ``state``'s layout; a CUDA env only."""
+        if self.device.type != "cuda":
+            raise ValueError(f"the env resets on {self.device}: only a "
+                             f"CUDA env's reset is captured")
+        if self._reset_graph is None:
+            self._reset_graph = self._capture_reset(state)
+        return self._reset_graph
+
+    def _capture_reset(self, state: EnvState) -> FnGraph:
+        return FnGraph(self._reset_tail, self.device, (state,),
+                       "the env reset", pool=self.graph_pool())
+
+    def graph_pool(self):
+        """The memory pool of the CUDA graphs of this env, its GS wrapper
+        and renderer and its collision checker (None on the CPU).  They
+        never replay at once and every call copies its outputs out before
+        another replays, so one pool serves them all."""
+        if self.device.type != "cuda":
+            return None
+        if self._graph_pool is None:
+            with torch.cuda.device(self.device):
+                self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
 
     def _as_action(self, action) -> torch.Tensor:
         action = torch.as_tensor(action, dtype=torch.float32,
@@ -700,7 +746,8 @@ class GsBaseEnv:
             if self._step_graph is None:
                 self._step_graph = StepGraph(self._step_fn, self.device,
                                              self._state, action,
-                                             "the env step")
+                                             "the env step",
+                                             pool=self.graph_pool())
             out = self._step_graph(self._state, action)
         else:
             out = self._step_fn(self._state, action)

@@ -200,7 +200,9 @@ def forward_kinematics(model: ArticulationModel, qpos: torch.Tensor,
     if root_pos is None:
         root_pos = torch.zeros(batch + (3,), **kw)
     if root_quat is None:
-        root_quat = torch.tensor([1.0, 0.0, 0.0, 0.0], **kw)
+        # filled on the device: no host copy, so a CUDA graph captures it
+        root_quat = torch.zeros(batch + (4,), **kw)
+        root_quat[..., 0] = 1.0
     mt = model_tensors(model, qpos.device)
     origin_pos = mt["origin_pos"].to(qpos.dtype)
     origin_quat = mt["origin_quat"].to(qpos.dtype)

@@ -32,7 +32,7 @@ from gsworld_tpu_torch.core.maths import (
 )
 from gsworld_tpu_torch.envs.base import GsBaseEnv
 from gsworld_tpu_torch.physics.ik import ee_pose_fn, solve_ik
-from gsworld_tpu_torch.utils.cuda_graph import capture
+from gsworld_tpu_torch.utils.cuda_graph import FnGraph
 
 
 def _f32(x):
@@ -72,33 +72,6 @@ def quat_slerp_screw(p0, q0, p1, q1, n: int):
                            _f32(q0)).numpy()
         out.append((p.astype(np.float32), qi.astype(np.float32)))
     return out
-
-
-class _IKGraph:
-    """``solve(*inputs)`` captured into a CUDA graph on static copies of
-    ``inputs`` (``utils.cuda_graph.capture``) and replayed per call, with
-    the inputs' device current."""
-
-    WARMUP = 3
-
-    def __init__(self, solve, *inputs):
-        self.inputs = [x.clone() for x in inputs]
-        self.device = inputs[0].device
-
-        def warm():
-            for _ in range(self.WARMUP):
-                solve(*self.inputs)
-
-        self.graph, self.outputs = capture(
-            lambda: solve(*self.inputs), warm, self.device,
-            "the IK solve")
-
-    def __call__(self, *inputs):
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-        with torch.cuda.device(self.device):
-            self.graph.replay()
-        return tuple(o.clone() for o in self.outputs)
 
 
 class MotionPlanningSolver:
@@ -148,7 +121,8 @@ class MotionPlanningSolver:
                 root_quat[None])
         if dev.type == "cuda" and self.base_env.graph:
             if self._ik_graph is None:
-                self._ik_graph = _IKGraph(self._solve, *args)
+                self._ik_graph = FnGraph(self._solve, dev, args,
+                                         "the IK solve")
             q, conv = self._ik_graph(*args)
         else:
             q, conv = self._solve(*args)

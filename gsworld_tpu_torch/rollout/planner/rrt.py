@@ -6,13 +6,17 @@ one batched torch function on the env's device: forward kinematics of M
 configurations, every contact link's support points placed in the world,
 and every (link, actor) pair's points tested against the actor's hull
 and the tabletop plane at once, so an edge check tests all of its
-interpolated configurations in one call.
+interpolated configurations in one call.  On a CUDA env built with
+``graph=True`` that call replays one CUDA graph per batch size, as the
+JAX package compiles its jitted check once per shape.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from gsworld_tpu_torch.utils.cuda_graph import FnGraph
 
 
 def make_collision_checker(env, clearance: float = 0.002):
@@ -21,7 +25,13 @@ def make_collision_checker(env, clearance: float = 0.002):
     collision).  Collision = any contact-link support point penetrating
     any actor hull by more than ``clearance``, or a contact link's point
     below the tabletop plane (the first of the scene's planes, unbounded)
-    by more than ``clearance``."""
+    by more than ``clearance``.
+
+    On a graphed CUDA env (``env._graphed()`` at the call) a call replays
+    one CUDA graph per batch size M (an ``FnGraph``, captured at the first
+    call with that M; ``check.graphs`` holds them by M): the batch is
+    copied into the graph's static (M, dof) input and the (M,) output is
+    a tensor of its own.  Otherwise it runs eagerly."""
     from gsworld_tpu_torch.physics import contact as C
     from gsworld_tpu_torch.physics.kinematics import forward_kinematics
 
@@ -39,8 +49,7 @@ def make_collision_checker(env, clearance: float = 0.002):
     plane = torch.as_tensor(np.asarray(scene.planes)[0, :4], **f32)
 
     @torch.no_grad()
-    def check(qpos_batch, a_pos, a_quat, root_pos, root_quat):
-        q = torch.as_tensor(qpos_batch, **f32)
+    def collides(q, a_pos, a_quat, root_pos, root_quat):
         M = q.shape[0]
         lp, lq = forward_kinematics(model, q, root_pos.expand(M, 3),
                                     root_quat.expand(M, 4))
@@ -53,6 +62,21 @@ def make_collision_checker(env, clearance: float = 0.002):
         h = pts[:, plane_links] @ plane[:3] + plane[3]       # (M, n, K)
         return hit | (h < -clearance).flatten(1).any(dim=1)
 
+    graphs = {}
+
+    def check(qpos_batch, a_pos, a_quat, root_pos, root_quat):
+        q = torch.as_tensor(qpos_batch, dtype=torch.float32)
+        args = (a_pos, a_quat, root_pos, root_quat)
+        if not env._graphed():
+            return collides(q.to(dev), *args)
+        M = q.shape[0]
+        if M not in graphs:
+            graphs[M] = FnGraph(collides, dev, (q.to(dev), *args),
+                                "the collision check",
+                                pool=env.graph_pool())
+        return graphs[M](q, *args)
+
+    check.graphs = graphs
     return check
 
 

@@ -130,6 +130,7 @@ def scan_shards(wrappers, actions):
                     frames[i].copy_(src)
     for w, g in zip(wrappers, graphs):
         w.env._state = g.state_clone()
+        w.renderer.last_overflow = w._step_overflow
     count = sum(w.num_envs for w in wrappers) * src.numel()
     with torch.cuda.device(src.device):
         total = sum(s.to(src.device) for s in sums)

@@ -72,6 +72,8 @@ def main(argv=None):
     rc.build_kernels()
     renderer = cs.make_renderer("cuda", cs.NUM_ENVS, cs.BENCH_RASTER,
                                 cs.BENCH_SIZES)
+    # the eager render, whose host part this splits (a replay has none)
+    renderer.env.graph = False
     states = cs.random_states(renderer.env, cs.STEPS, "cuda")
     name = os.path.basename(root)
     out = os.path.join(REPO, "chiprun_out")

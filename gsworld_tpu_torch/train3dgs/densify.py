@@ -11,6 +11,9 @@ opacity_reset_interval.
 The scene keeps a fixed capacity: pruning clears the alive mask, and new
 Gaussians are written into dead slots (requests ranked by gradient,
 budgeted by the number of free slots), exactly as the JAX package does.
+Every shape is fixed and nothing is read on the host, as in the JAX
+package's jitted pass, so the pass captures into a CUDA graph
+(``train3dgs/train.py:DensifyGraph``).
 """
 
 from __future__ import annotations
@@ -107,31 +110,33 @@ def densify_and_prune(scene: GaussianScene, ds: DensifyState,
     alive = ds.alive & ~prune
 
     # requests (clones and splits) ranked by gradient take the dead slots
-    # in index order, as many as there are
+    # in index order, as many as there are: rank position i fires (takes
+    # dead slot dst[i] for request src[i]) below the device count n_new
     req = want_clone | want_split
     score = torch.where(req & alive, avg_grad,
                         torch.full_like(avg_grad, -math.inf))
     src = torch.argsort(-score, stable=True)
     dst = torch.argsort(alive.to(torch.int32), stable=True)
-    n_new = int(torch.minimum((~alive).sum(), (score > -math.inf).sum()))
-    src, dst = src[:n_new], dst[:n_new]
+    n_new = torch.minimum((~alive).sum(), (score > -math.inf).sum())
+    take = torch.arange(N, device=alive.device) < n_new
 
     if noise is None:
         noise = torch.randn((N, 3), generator=generator,
                             dtype=scene.means.dtype, device=scene.means.device)
     split = want_split[src][:, None]
     scales = torch.exp(scene.log_scales[src])
-    disp = quat_rotate(quat_normalize(scene.quats[src]),
-                       noise[:n_new] * scales)
+    disp = quat_rotate(quat_normalize(scene.quats[src]), noise * scales)
     new = {f: getattr(scene, f)[src] for f in SCENE_FIELDS}
     new["means"] = torch.where(split, new["means"] + disp, new["means"])
     new["log_scales"] = torch.where(split, new["log_scales"] - math.log(1.6),
                                     new["log_scales"])
 
+    # positions that do not fire write their slot's own row back
     out = {}
     for f in SCENE_FIELDS:
         x = getattr(scene, f).clone()
-        x[dst] = new[f]
+        fire = take.reshape((-1,) + (1,) * (x.dim() - 1))
+        x[dst] = torch.where(fire, new[f], x[dst])
         out[f] = x
     # split originals shrink in place
     shrink = want_split & alive
@@ -139,9 +144,9 @@ def densify_and_prune(scene: GaussianScene, ds: DensifyState,
                                     out["log_scales"] - math.log(1.6),
                                     out["log_scales"])
     alive2 = alive.clone()
-    alive2[dst] = True
+    alive2[dst] = alive[dst] | take
     changed = prune | shrink
-    changed[dst] = True
+    changed[dst] = changed[dst] | take
 
     z = torch.zeros(N, dtype=torch.float32, device=alive.device)
     return GaussianScene(**out), DensifyState(

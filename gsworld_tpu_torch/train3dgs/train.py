@@ -11,8 +11,10 @@ render.
 
 On the card ``train`` replays one CUDA graph of the train step per
 iteration (``TrainStepGraph``), as the JAX package runs its jitted
-``train_step``; densify and the opacity reset run between replays and
-write into the graph's buffers.
+``train_step``, and one CUDA graph of each densify pass
+(``DensifyGraph``), as it runs its jitted ``densify_and_prune``; densify
+and the opacity reset run between replays and write into the train-step
+graph's buffers.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from gsworld_tpu_torch.train3dgs.optim import (
     write_step_scalars,
     zero_rows,
 )
-from gsworld_tpu_torch.utils.cuda_graph import capture
+from gsworld_tpu_torch.utils.cuda_graph import capture, device_guard
 
 
 class TrainState(NamedTuple):
@@ -181,6 +183,57 @@ class TrainStepGraph:
             return self.state.ds, self.loss.clone(), self.img.clone()
 
 
+class DensifyGraph:
+    """One densify + prune pass with its reset of the rewritten rows' Adam
+    moments, written into the TrainState's own tensors
+    (``densify_and_prune``, ``zero_rows`` and ``_write_state``), captured
+    into one CUDA graph: the counterpart of the JAX package's jitted
+    ``densify_and_prune``.  Its static input is the split noise (N, 3),
+    which each call fills from ``generator`` with the very draw the eager
+    pass makes.  It serves the state it was captured on.
+
+    Captured by ``utils.cuda_graph.capture`` after WARMUP passes on a
+    clone of the state (which leave the state as it was); the capture
+    itself changes nothing, so one call is one pass.  A failed capture
+    raises: nothing falls back to the eager pass."""
+
+    WARMUP = 2
+
+    def __init__(self, state: TrainState, **densify_kw):
+        self.device = state.scene.means.device
+        self.state = state
+        means = state.scene.means
+        self.noise = torch.zeros((means.shape[0], 3), dtype=means.dtype,
+                                 device=self.device)
+
+        def densify(st: TrainState):
+            scene, ds, changed = densify_and_prune(
+                st.scene, st.ds, noise=self.noise, **densify_kw)
+            zero_rows(st.opt_state, changed)
+            _write_state(st, scene, ds)
+
+        def warm():
+            s = _clone_train_state(state)
+            for _ in range(self.WARMUP):
+                densify(s)
+
+        with torch.no_grad():
+            self.graph, _ = capture(lambda: densify(state), warm,
+                                    self.device, "the densify pass")
+
+    def __call__(self, state: TrainState, generator: torch.Generator):
+        """One densify pass of the state it was captured on, its split
+        noise drawn from ``generator``."""
+        if state.scene.means is not self.state.scene.means:
+            raise ValueError("a densify graph densifies the state it was "
+                             "captured on")
+        with device_guard(self.device):
+            self.noise.copy_(torch.randn(
+                self.noise.shape, generator=generator,
+                dtype=self.noise.dtype, device=self.device))
+            self.graph.replay()
+
+
 def make_train_step(cfg: RasterConfig, params: OptimizationParams,
                     graph: bool = True):
     """-> ``train_step(state, cam, target) -> (state, loss, image)``.  The
@@ -239,9 +292,11 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
     ``callback(it, state, loss, densified)``, when given, runs after
     every iteration.  On the card with ``graph`` (the default) every
     iteration replays one CUDA graph of the train step
-    (``TrainStepGraph``), and densify and the opacity reset write into
-    its buffers between replays; ``graph=False`` steps eagerly.  Returns
-    (scene, densify state, losses)."""
+    (``TrainStepGraph``), each densify pass replays one CUDA graph
+    (``DensifyGraph``, captured at the first pass), and densify and the
+    opacity reset write into the train step's buffers between replays;
+    ``graph=False`` steps and densifies eagerly.  Returns (scene,
+    densify state, losses)."""
     params = params or OptimizationParams()
     iters = iterations or params.iterations
     dev = scene.means.device
@@ -252,6 +307,10 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
                        opt_state=adam_init(scene), step=0)
     train_step = make_train_step(cfg, params, graph=graph)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    densify_kw = dict(grad_threshold=params.densify_grad_threshold,
+                      percent_dense=params.percent_dense,
+                      scene_extent=scene_extent)
+    densify_graph = None
 
     losses = []
     for it in range(1, iters + 1):
@@ -261,12 +320,13 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
         densified = (params.densify_from_iter <= it
                      <= params.densify_until_iter
                      and it % params.densification_interval == 0)
-        if densified:
+        if densified and graph and dev.type == "cuda":
+            if densify_graph is None:
+                densify_graph = DensifyGraph(state, **densify_kw)
+            densify_graph(state, gen)
+        elif densified:
             scene2, ds2, changed = densify_and_prune(
-                state.scene, state.ds, gen,
-                grad_threshold=params.densify_grad_threshold,
-                percent_dense=params.percent_dense,
-                scene_extent=scene_extent)
+                state.scene, state.ds, gen, **densify_kw)
             # reset the Adam moments of the rows densify rewrote only
             zero_rows(state.opt_state, changed)
             _write_state(state, scene2, ds2)

@@ -31,12 +31,20 @@ Output contract (as the JAX wrapper): per camera, ``rgb`` uint8
 (B, H, W, 3) from ``clip(img * 255, 0, 255)`` truncated, and with
 segmentation in ``env.obs_mode`` an int16 ``segmentation`` (B, H, W, 1).
 
-On a CUDA env built with ``graph=True`` (the default),
-``GSWorldWrapper.step`` replays one CUDA graph of the whole step, physics
-to render (``step_graph``: an ``envs.base.StepGraph`` of
-``_step_and_render``, the JAX wrapper's ``_jit_step``), captured at the
-first step; the scanned loop (``rollout/random_actions.py:scan_steps``)
-replays the same graph.  ``graph=False`` and the CPU step eagerly.
+On a CUDA env built with ``graph=True`` (the default), every call
+replays one CUDA graph, as the JAX wrapper runs its jitted programs:
+``GSWorldWrapper.step`` the whole step, physics to render
+(``step_graph``: an ``envs.base.StepGraph`` of ``_step_and_render``,
+``_jit_step``), which the scanned loop
+(``rollout/random_actions.py:scan_steps``) replays too; ``reset`` the
+reset's device tail and the sensor render (``reset_graph``,
+``_jit_reset``) after the env's host layout; ``GSWorldRenderer.render``
+one graph per camera set (``render_graph``: the sensor cameras for
+``render_current_step``, ``_jit_render``, and the human view for
+``render``).  Each is captured at its first call.  A graph cannot be
+replayed inside another's capture, so the captured functions call the
+eager render (``GSWorldRenderer._render``).  A call with
+``raster_config=``, ``graph=False`` and the CPU run eagerly.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from gsworld_tpu_torch.physics.kinematics import forward_kinematics
 from gsworld_tpu_torch.physics.spec_io import load_surface_points
 from gsworld_tpu_torch.render.camera import RasterConfig, cam_maniskill2gs
 from gsworld_tpu_torch.render.rasterize import render as gs_render
+from gsworld_tpu_torch.utils.cuda_graph import FnGraph
 
 
 class GSWorldRenderer:
@@ -142,6 +151,7 @@ class GSWorldRenderer:
         self.raster_config = raster_config or RasterConfig(
             width=cam0.width if cam0 else 640,
             height=cam0.height if cam0 else 480)
+        self._render_graphs = {}
 
     def slot_transforms(self, link_pos, link_quat, a_pos, a_quat,
                         a_scale=None) -> SlotTransforms:
@@ -232,7 +242,50 @@ class GSWorldRenderer:
         """Render every env of ``poses`` through every sensor camera, or
         through ``cameras`` (then without segmentation).
         ``raster_config`` replaces the renderer's for this render (another
-        D or E at the sensor cameras' size: tools/render_parity.py)."""
+        D or E at the sensor cameras' size: tools/render_parity.py).  On a
+        CUDA env built with ``graph=True`` a render without
+        ``raster_config`` replays the camera set's ``render_graph``; its
+        outputs are tensors of their own, as the eager render's."""
+        if raster_config is None and self.env.graph \
+                and self.device.type == "cuda":
+            result, self.last_overflow = self.render_graph(
+                poses, cameras)(poses)
+            return result
+        return self._render(poses, cameras, raster_config)
+
+    def render_graph(self, poses: EnvPoses, cameras=None) -> FnGraph:
+        """The render through ``cameras`` (default the sensor cameras) as
+        one CUDA graph (an ``FnGraph`` of ``_render`` on static EnvPoses,
+        returning the render and ``last_overflow``), one per camera set and
+        set of pose fields, captured at its first call from ``poses``; a
+        CUDA renderer only.  A replay launches one emit and one compositor
+        kernel."""
+        if self.device.type != "cuda":
+            raise ValueError(f"the renderer draws on {self.device}: only a "
+                             f"CUDA render is captured")
+        cams = self.env.cameras if cameras is None else cameras
+        key = (cameras is None, tuple(map(id, cams)), tuple(
+            None if v is None else (tuple(v.shape), v.dtype)
+            for v in (getattr(poses, f.name)
+                      for f in dataclasses.fields(poses))))
+        hit = self._render_graphs.get(key)
+        if hit is None:
+            hit = self._render_graphs[key] = (
+                self._capture_render(poses, cameras), list(cams))
+        return hit[0]
+
+    def _capture_render(self, poses: EnvPoses, cameras=None) -> FnGraph:
+        def fn(p):
+            out = self._render(p, cameras)
+            return out, self.last_overflow
+
+        return FnGraph(fn, self.device, (poses,), "the GS render",
+                       pool=self.env.graph_pool())
+
+    @torch.no_grad()
+    def _render(self, poses: EnvPoses, cameras=None,
+                raster_config: Optional[RasterConfig] = None) -> dict:
+        """``render``'s work, eagerly (what every graph captures)."""
         env = self.env
         cams = env.cameras if cameras is None else cameras
         cfg = self._config_for(cameras)
@@ -305,11 +358,13 @@ class GSWorldWrapper:
         self.is_real_scene = self.renderer.is_real_scene
         self.raster_config = self.renderer.raster_config
         self._step_graph: Optional[StepGraph] = None
+        self._reset_graph: Optional[FnGraph] = None
 
     def _render_fn(self, state, cameras=None) -> dict:
+        """The eager GS render of ``state`` (what the graphs capture)."""
         with record_function("gsw.closed_loop.render"):
-            return self.renderer.render(world_poses(state.world, state.task),
-                                        cameras)
+            return self.renderer._render(
+                world_poses(state.world, state.task), cameras)
 
     def _step_and_render(self, state, action):
         """One step of ``state`` and the GS render of the new state."""
@@ -332,15 +387,54 @@ class GSWorldWrapper:
         if self._step_graph is None:
             self._step_graph = StepGraph(self._step_and_render,
                                          self.env.device, self.env._state,
-                                         action, "the closed-loop step")
+                                         action, "the closed-loop step",
+                                         pool=self.env.graph_pool())
+            # the render's overflow output of the graph
+            self._step_overflow = self.renderer.last_overflow
         return self._step_graph
+
+    def _reset_and_render(self, state):
+        """The device part of a reset of the laid-out ``state`` and its GS
+        render (the JAX wrapper's ``_reset_and_render`` after the layout)
+        -> (obs, the render's overflow)."""
+        obs = dict(self.env._reset_tail(state))
+        obs["sensor_data"] = self._render_fn(state)
+        return obs, self.renderer.last_overflow
+
+    def reset_graph(self, state) -> FnGraph:
+        """The reset's device tail and the sensor render as one CUDA graph
+        (an ``FnGraph`` of ``_reset_and_render``), captured at the first
+        call from ``state``; a CUDA env only.  A replay launches one emit
+        and one compositor kernel."""
+        if self.env.device.type != "cuda":
+            raise ValueError(f"the env resets on {self.env.device}: only a "
+                             f"CUDA env's reset is captured")
+        if self._reset_graph is None:
+            self._reset_graph = self._capture_reset(state)
+        return self._reset_graph
+
+    def _capture_reset(self, state) -> FnGraph:
+        return FnGraph(self._reset_and_render, self.env.device, (state,),
+                       "the closed-loop reset", pool=self.env.graph_pool())
 
     def reset(self, seed: Optional[int] = None,
               options: Optional[dict] = None):
-        obs, info = self.env.reset(seed=seed, options=options)
-        obs = dict(obs)
-        obs["sensor_data"] = self._render_fn(self.env._state)
-        return obs, info
+        seed = 0 if seed is None else seed
+        self.env._action_gen = torch.Generator().manual_seed(seed + 1)
+        return self._reset_from_draws(*self.env.reset_draws(seed)), {}
+
+    def _reset_from_draws(self, draws, dr_draws):
+        """A reset from its draws: the env's host layout, then its device
+        tail and the render through the wrapper's reset graph on a graphed
+        env (eagerly otherwise); the env takes the new state -> obs."""
+        env = self.env
+        state = env._reset_layout(draws, dr_draws)
+        if env._graphed():
+            obs, self.renderer.last_overflow = self.reset_graph(state)(state)
+        else:
+            obs = self._reset_and_render(state)[0]
+        env._state = state
+        return obs
 
     def step(self, action):
         """One step and the GS render of the new state; through the
@@ -349,6 +443,7 @@ class GSWorldWrapper:
         action = self.env._as_action(action)
         if self.env._graphed():
             out = self.step_graph(action)(self.env._state, action)
+            self.renderer.last_overflow = self._step_overflow
         else:
             out = self._step_and_render(self.env._state, action)
         (self.env._state, obs, reward, terminated, truncated, info) = out
@@ -366,14 +461,18 @@ class GSWorldWrapper:
         return save_env_state(self.env._state, path)
 
     def render_current_step(self) -> dict:
-        """Render without stepping."""
-        return self._render_fn(self.env._state)
+        """Render without stepping (through the renderer's graph of the
+        sensor cameras on a graphed env)."""
+        st = self.env._state
+        return self.renderer.render(world_poses(st.world, st.task))
 
     def render(self) -> torch.Tensor:
         """Human render view: the GS render of the third-person camera,
-        uint8 (B, H, W, 3)."""
-        out = self._render_fn(self.env._state,
-                              cameras=self.env.human_render_cameras)
+        uint8 (B, H, W, 3) (through the renderer's graph of that view on
+        a graphed env)."""
+        st = self.env._state
+        out = self.renderer.render(world_poses(st.world, st.task),
+                                   cameras=self.env.human_render_cameras)
         return next(iter(out.values()))["rgb"]
 
     def __getattr__(self, name):
