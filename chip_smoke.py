@@ -9,8 +9,8 @@ full size, then the end-effector control modes, the other six tasks, the
 xArm closed loop with domain randomization, the closed loop on merged
 real-scan PLYs, the real2sim toolchain, scripted demo collection
 (rollout.run_with_gs), the env axis split into shards (dist) and the
-bench raster's fidelity against its uncapped render, and reports their
-speed.
+bench raster's fidelity against its uncapped render, then the port's
+bench (gsworld_tpu_torch.tools.bench), and reports their speed.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,11 @@ Phases (each prints a line; any failure exits non-zero before a result):
   3b. bwd     the compositor backward kernel and the emit kernel vs their
               plain versions on one 640x480 frame of the phase-5 training
               scene at its capacity, inputs from the training path's
-              projection and binning
+              projection and binning; the backward twice on one input,
+              bit for bit; the per-Gaussian sum in slot order
+              (csrc/entry_rows.cu) vs its plain version bit for bit, with
+              the times of both and of index_add_, the library call it
+              replaced
   4. slice    GSWorldRenderer, 4 envs x 2 cameras, 640x480, tile 32,
               D=64, E=393216, alpha cull on, ~222k Gaussians: 10 batched
               states rendered eagerly (the env's graph=False) and through
@@ -47,19 +51,23 @@ Phases (each prints a line; any failure exits non-zero before a result):
               held out; the scene is rebuilt from its noisy means and
               colours for 300 iterations (densify at 100, 200, 300, capacity
               2N), through the train step's CUDA graph (one replay per
-              iteration) and eagerly (graph=False), 8 runs of each,
+              iteration) and eagerly (graph=False), 2 runs of each,
               alternated: host launch counts (the graph's: its warm-up
-              steps and capture), ms per step, losses, alive counts, the
-              mean held-out PSNRs of the two forms within 0.1 dB, peak
-              memory; one train step graph vs eager within
-              1e-4 of each field's max beside the eager-vs-eager spread,
-              its loss and image unchanged by the next replay; in the
-              graph run, one call of the graph per iteration, one call of
-              the densify graph per densify pass and, by the profiler
+              steps and capture), ms per step, losses, alive counts, peak
+              memory; all four runs, graph and eager, give the same
+              losses, held-out PSNR and returned scene bit for bit; one eager
+              train step and densify pass under
+              torch.use_deterministic_algorithms(True, warn_only=True) and
+              utils.determinism's op audit name no op that is not
+              deterministic on the card; one train step eagerly twice and
+              through the graph from one state, bit for bit in every
+              field, its loss and image unchanged by the next replay; in
+              the graph run, one call of the graph per iteration, one call
+              of the densify graph per densify pass and, by the profiler
               over the 3 replays after the first densify, one emit,
-              compositor and backward kernel per replay; one densify pass
-              through its graph vs eager from one state with the same
-              split noise, bit for bit
+              compositor, backward and entry-rows kernel per replay; one
+              densify pass through its graph vs eager from one state with
+              the same split noise, bit for bit
   5b. step    one training step of a ~2k-Gaussian scene at 160x120 on the
               card against the same step on the CPU
   6a. physics AlignFr3Env-v1 (obs_mode state_dict) at 1, 4 and 64 envs:
@@ -195,9 +203,16 @@ Phases (each prints a line; any failure exits non-zero before a result):
               entries the bench render dropped and those its D cap shrank;
               emit and compositor vs plain on env 0's 2 frames of the
               first state at the lifted shape (phase 3's gates)
+  10. bench   gsworld_tpu_torch.tools.bench's main in process with its
+              defaults: the 1-env (10 steps), 64-env (3 steps) and 4-env
+              headline rows in bench.py's format and order, each logged
+              as "phase 10 bench: {...}", then its smoke preset's row; all
+              present with a finite value > 0; each row's ms per step
+              beside phase 6c's scanned loop; where more than one card is
+              visible, the BENCH_SHARD=1 headline too
 The lines before the JSON lines repeat the train, render-step, physics,
-closed-loop, EE-mode, xArm-loop, scan-loop, real2sim, demo, shard and
-fidelity lines; the
+closed-loop, EE-mode, xArm-loop, scan-loop, real2sim, demo, shard,
+fidelity and bench lines; the
 second-to-last line is the kernels JSON, the last the device JSON.  Long
 outputs (profile, ptxas report) go to OUT_DIR, the git-ignored output
 directory of the checkout.
@@ -240,13 +255,14 @@ TRAIN_ITERS = 300
 TRAIN_VIEWS = 9
 TRAIN_ARC_DEG = 120.0
 STEP_TOL = 1e-4         # one train step, card vs CPU, relative to field max
-TRAIN_PSNR_GAP = 0.1    # dB, phase 5's held-out PSNR, graph vs eager
-TRAIN_PSNR_RUNS = 8     # runs of each form whose mean PSNRs the gate compares
+TRAIN_REPEATS = 2       # phase 5's runs of each form, bit for bit alike
 TRAIN_PROFILE_STEPS = 3  # phase 5's graph replays in the profiler's window
 # each wrapper's CUDA kernel, by the name the profiler shows
 KERNEL_NAMES = {"emit_entries": "emit_kernel",
                 "composite_tiles": "composite_kernel",
-                "composite_bwd": "composite_bwd_kernel"}
+                "composite_bwd": "composite_bwd_kernel",
+                "sum_entry_rows": "entry_rows_kernel"}
+TRAIN_KERNELS = ("composite_bwd", "sum_entry_rows")  # the train path's own
 BURST = 50              # launches per window of the back-to-back clock
 PHYS_ENVS = (1, 4, 64)
 PHYS_STEPS = 30
@@ -726,8 +742,8 @@ def check_emit(phase, what, plan, cfg, timed=True):
         if worst >= CULL_BORDER:
             raise AssertionError(f"emit ({what}): {n_flip} keys differ, one "
                                  f"{worst:.3g} from the cull threshold")
-    gaus_k, starts_k = sort_entries(keys_k, gid_k, T)
-    gaus_p, starts_p = sort_entries(keys_p, gid_p, T)
+    gaus_k, starts_k, _ = sort_entries(keys_k, gid_k, T)
+    gaus_p, starts_p, _ = sort_entries(keys_p, gid_p, T)
     d_starts = int((starts_k.long() - starts_p.long()).abs().max())
     if n_flip == 0 and (d_starts or not torch.equal(gaus_k, gaus_p)):
         raise AssertionError(f"emit ({what}): starts or entry order differ")
@@ -1172,8 +1188,8 @@ def phase_backward(setup):
     rows_p = rc.composite_bwd_reference(*bwd_args, **kw)
     torch.cuda.synchronize()
     N = flat.opacity.shape[1]
-    gk = rc.scatter_entry_rows(rows_k, bins.gaussian, N)
-    gp = rc.scatter_entry_rows(rows_p, bins.gaussian, N)
+    gk = rc.sum_entry_rows(rows_k, bins.perm, bins.ends)
+    gp = rc.sum_entry_rows(rows_p, bins.perm, bins.ends)
     rel, abs_err = {}, 0.0
     for name, sl in (("mean2d", slice(0, 2)), ("conic", slice(2, 5)),
                      ("color", slice(5, 8)), ("opacity", slice(8, 9))):
@@ -1202,12 +1218,70 @@ def phase_backward(setup):
     bounds = composite_bounds(work, segment=False)
     log(work_line("3b", work, [("composite_bwd", bounds["bwd"], ms),
                                ("composite", bounds["fwd"], fwd_ms)]))
-    return dict(name="composite_bwd", route="cuda",
-                source="gsworld_tpu_torch/csrc/composite_bwd.cu",
-                replaces="gsworld_tpu/render/rasterize_pallas.py:535",
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
-                library_ms=None), emit_train
+    bwd_entry = dict(name="composite_bwd", route="cuda",
+                     source="gsworld_tpu_torch/csrc/composite_bwd.cu",
+                     replaces="gsworld_tpu/render/rasterize_pallas.py:535",
+                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
+                     library_ms=None)
+    rows_entry = check_entry_rows(rows_k, bins, N)
+    # the backward's parts are added in a fixed order: two calls, one bits
+    again = rc.composite_bwd(*bwd_args, **kw, records=rec)
+    if not torch.equal(again, rows_k):
+        raise AssertionError("composite_bwd: two calls on one input differ")
+    log("phase 3b composite_bwd: a second call on the same inputs gives "
+        "the same rows bit for bit")
+    return bwd_entry, rows_entry, emit_train
+
+
+def check_entry_rows(rows, bins, N):
+    """csrc/entry_rows.cu (``sum_entry_rows``) vs its plain version on the
+    backward kernel's rows of the training frame, bit for bit (both add
+    each Gaussian's rows in slot order); CUDA-event times of both and of
+    the one library call that computes the same sums (``index_add_`` by
+    Gaussian id, which adds in no fixed order), its result beside ->
+    kernels-line entry."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    F, E, K = rows.shape
+    got = rc.sum_entry_rows(rows, bins.perm, bins.ends)
+    want = rc.sum_entry_rows_reference(rows, bins.perm, bins.ends)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        d = float((got - want).abs().max())
+        raise AssertionError(f"sum_entry_rows: kernel vs plain differ "
+                             f"(max |diff| {d:.3g}); want bit for bit")
+    idx = ((torch.arange(F, device=rows.device) * N)[:, None]
+           + bins.gaussian.long().clamp_min(0)).reshape(-1)
+    flat_rows = rows.reshape(-1, K)
+    acc = torch.zeros((F * N, K), dtype=rows.dtype, device=rows.device)
+    lib = torch.zeros_like(acc).index_add_(0, idx, flat_rows).reshape(F, N, K)
+    lib_diff = float((lib - got).abs().max()) / max(
+        float(got.abs().max()), 1e-30)
+    ms = cuda_ms(lambda: rc.sum_entry_rows(rows, bins.perm, bins.ends),
+                 reps=20)
+    plain_ms = cuda_ms(
+        lambda: rc.sum_entry_rows_reference(rows, bins.perm, bins.ends),
+        reps=3)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, idx, flat_rows), reps=20)
+    # each input read once, each output written once
+    nbytes = (rows.numel() * 4 + bins.perm.numel() * 8
+              + bins.ends.numel() * 4 + got.numel() * 4)
+    bound_ms = 1e3 * nbytes / HBM_RATE
+    ends = bins.ends.long()
+    cnt = torch.diff(ends, dim=-1, prepend=torch.zeros_like(ends[:, :1]))
+    log(f"phase 3b sum_entry_rows, {F} frame of {N} Gaussians, {E} entry "
+        f"slots ({int(cnt.sum())} owned, at most {int(cnt.max())} a "
+        f"Gaussian): kernel vs plain bit for bit; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms (its "
+        f"sums {lib_diff:.3g} of the max from the kernel's); bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at HBM rate; "
+        f"{100 * bound_ms / ms:.1f}% of it)")
+    return dict(name="sum_entry_rows", route="cuda",
+                source="gsworld_tpu_torch/csrc/entry_rows.cu",
+                replaces="gsworld_tpu/render/rasterize_pallas.py:779",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
 
 def train_params():
@@ -1321,7 +1395,8 @@ def train_run(setup, graph):
             prof, TRAIN_PROFILE_STEPS,
             f"train-step replays after the first densify (iterations "
             f"{window.start}-{window.stop - 1})",
-            ("emit_kernel", "composite_kernel", "composite_bwd_kernel"), 1,
+            ("emit_kernel", "composite_kernel", "composite_bwd_kernel",
+             "entry_rows_kernel"), 1,
             TRAIN_PROFILE_STEPS, prof_wall[0])
     ms = [1000.0 * dt for dt, skip in step_s[5:] if not skip]
     return dict(scene=scene, losses=losses, counts=counts, peak=peak,
@@ -1331,30 +1406,57 @@ def train_run(setup, graph):
                 prof_text=prof_text, per_replay=per)
 
 
+def bits(x):
+    """A float32 tensor as its raw bits (int32), any other as it is: two
+    are bit for bit alike when torch.equal holds for their bits."""
+    import torch
+    x = x.contiguous()
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def scene_bits(scene):
+    """Every field of a GaussianScene, float32 ones as their raw bits."""
+    from gsworld_tpu_torch.gs.model import SCENE_FIELDS
+    return {f: bits(getattr(scene, f)) for f in SCENE_FIELDS}
+
+
+def runs_alike(a, b):
+    """Whether two train runs returned the same losses, held-out PSNR and
+    scene, bit for bit -> list of what differs."""
+    import torch
+    differ = [k for k in ("losses", "psnr") if a[k] != b[k]]
+    sa, sb = scene_bits(a["scene"]), scene_bits(b["scene"])
+    differ += [f for f in sa if sa[f].shape != sb[f].shape
+               or not torch.equal(sa[f], sb[f])]
+    return differ
+
+
 def phase_train(setup):
     """5: 3DGS training through the entry point at full size, through the
-    train step's CUDA graph and eagerly in the same call, TRAIN_PSNR_RUNS
-    times each: mean held-out PSNRs of the two within TRAIN_PSNR_GAP; the
-    graph's calls and the profiler's kernels per replay in each graph
-    run; one step graph vs eager; the eager step's stages by the
-    profiler."""
-    # the backward kernel's sums are not repeated bit for bit, and 300
-    # iterations with densify carry that into the held-out PSNR (one eager
-    # run against another: up to 0.13 dB), so the gate compares the mean
-    # of TRAIN_PSNR_RUNS runs of each form, alternated
+    train step's CUDA graph and eagerly in the same call, TRAIN_REPEATS
+    times each, alternated: every run, of either form, gives the same
+    losses, held-out PSNR and returned scene bit for bit; the graph's calls
+    and the profiler's kernels per replay in each graph run; the audit of one
+    eager step and densify pass; one step graph vs eager and eager vs
+    eager bit for bit; the eager step's stages by the profiler."""
     every = {True: [], False: []}
-    for k in range(TRAIN_PSNR_RUNS):
+    for _ in range(TRAIN_REPEATS):
         for g in (True, False):
             every[g].append(train_run(setup, g))
-            if k:
-                del every[g][-1]["scene"]
-    psnrs = {g: [x["psnr"] for x in every[g]] for g in every}
-    mean = {g: statistics.mean(v) for g, v in psnrs.items()}
-    if abs(mean[True] - mean[False]) > TRAIN_PSNR_GAP:
-        raise AssertionError(f"train: mean held-out PSNR through the graph "
-                             f"{mean[True]:.3f} dB {psnrs[True]}, eager "
-                             f"{mean[False]:.3f} dB {psnrs[False]} (gate "
-                             f"{TRAIN_PSNR_GAP} dB)")
+    for g, xs in every.items():
+        for x in xs[1:]:
+            differ = runs_alike(xs[0], x)
+            if differ:
+                raise AssertionError(
+                    f"train ({'graph' if g else 'eager'}): two runs from one "
+                    f"seed differ in {differ} (held-out PSNR "
+                    f"{[y['psnr'] for y in xs]})")
+    across = runs_alike(every[True][0], every[False][0])
+    if across:
+        raise AssertionError(
+            f"train: the graph run and the eager run from one seed differ in "
+            f"{across} (held-out PSNR {every[True][0]['psnr']!r} through the "
+            f"graph, {every[False][0]['psnr']!r} eager)")
     runs = {g: x[0] for g, x in every.items()}
     r = runs[True]
     losses, n_it = r["losses"], TRAIN_ITERS
@@ -1374,11 +1476,11 @@ def phase_train(setup):
     line = (f"phase 5 train: {setup.n} Gaussians (capacity {setup.capacity})"
             f", {len(cams)} views {setup.cfg.width}x{setup.cfg.height} (+1 "
             f"held out), {n_it} iterations: " + "; ".join(parts)
-            + f"; held-out PSNR of {TRAIN_PSNR_RUNS} runs of each form, "
-            f"alternated: graph {[round(v, 3) for v in psnrs[True]]}, eager "
-            f"{[round(v, 3) for v in psnrs[False]]}, mean graph - mean eager "
-            f"{mean[True] - mean[False]:+.3f} dB (gate {TRAIN_PSNR_GAP}); "
-            f"graph: loss {losses[0]:.5f} / "
+            + f"; {TRAIN_REPEATS} runs of each form, alternated: losses, "
+            f"held-out PSNR ({r['psnr']!r} dB through the graph, "
+            f"{runs[False]['psnr']!r} eager) and the returned scene bit for "
+            f"bit within each form and graph run vs eager run; graph: loss "
+            f"{losses[0]:.5f} / "
             f"{losses[n_it // 3 - 1]:.5f} / {losses[2 * n_it // 3 - 1]:.5f} "
             f"/ {losses[-1]:.5f} at iterations 1/{n_it // 3}/"
             f"{2 * n_it // 3}/{n_it} (first 20 mean {r['first']:.5f}, last "
@@ -1389,12 +1491,13 @@ def phase_train(setup):
                  f"train-step graph and {r['densify_replays']} of the "
                  f"densify graph in {n_it} iterations; {r['prof_text']}")
     log(prof_line)
+    audit_line = train_audit(setup, r["scene"])
     step_line = train_step_graph_vs_eager(setup, r["scene"])
     step_line += "; " + densify_graph_vs_eager(setup, r["scene"])
     profile_train(setup, r["scene"])
-    return r["counts"], [line, step_line, prof_line], r["psnr"], \
-        runs[False]["counts"], dict(replays=r["replays"],
-                                    per_replay=r["per_replay"])
+    return r["counts"], [line, audit_line, step_line, prof_line], \
+        r["psnr"], runs[False]["counts"], dict(replays=r["replays"],
+                                                per_replay=r["per_replay"])
 
 
 def _train_state(setup, scene):
@@ -1412,12 +1515,10 @@ def _train_state(setup, scene):
 
 def train_step_graph_vs_eager(setup, scene):
     """One train step from one state (the trained scene after one eager
-    step, so that Adam's moments hold a gradient), through the graph and
-    eagerly twice: every scene field, Adam moment, densify statistic and
-    the loss of the graph step within STEP_TOL of the first eager one,
-    relative to the field's max; the spread of the two eager steps (the
-    backward's index_add_ adds in no fixed order) printed beside it ->
-    line."""
+    step, so that Adam's moments hold a gradient), eagerly twice and
+    through the graph: every scene field, Adam moment, densify statistic
+    and the loss of the second eager step and of the graph step bit for
+    bit the first eager step's -> line."""
     import torch
     from gsworld_tpu_torch.gs.model import SCENE_FIELDS
     from gsworld_tpu_torch.train3dgs.train import (_clone_train_state,
@@ -1439,6 +1540,7 @@ def train_step_graph_vs_eager(setup, scene):
         fields.update({f"ds.{k}": getattr(st.ds, k)
                        for k in ("grad_accum", "denom", "max_radii")})
         fields["loss"] = loss.reshape(1)
+        fields["image"] = img
         outs.append({k: v.clone() for k, v in fields.items()})
     # the graph step's loss and image are its own: a second replay leaves
     # them as they were
@@ -1449,25 +1551,66 @@ def train_step_graph_vs_eager(setup, scene):
         raise AssertionError("train step: the graph step's loss or image "
                              "changed at the next step")
 
-    def rel(a, b):
+    def differ(a, b):
+        """-> {field: max |a - b| / max |b|} of the fields whose bits
+        differ."""
         return {k: float((a[k].double() - b[k].double()).abs().max())
-                / max(float(b[k].double().abs().max()), 1e-30) for k in b}
+                / max(float(b[k].double().abs().max()), 1e-30)
+                for k in b if not torch.equal(bits(a[k]), bits(b[k]))}
 
-    gate, spread = rel(outs[2], outs[0]), rel(outs[1], outs[0])
-    if max(gate.values()) > STEP_TOL:
-        bad = {k: v for k, v in gate.items() if v > STEP_TOL}
-        raise AssertionError(f"train step: graph vs eager {bad} (gate "
-                             f"{STEP_TOL}); eager vs eager "
-                             f"{ {k: spread[k] for k in bad} }")
-    worst = max(gate, key=gate.get)
+    spread, gate = differ(outs[1], outs[0]), differ(outs[2], outs[0])
+    if spread or gate:
+        raise AssertionError(f"train step: eager vs eager differ in "
+                             f"{spread}, graph vs eager in {gate} (relative "
+                             f"to each field's max); want bit for bit")
     line = (f"phase 5 train step graph vs eager, one step of the trained "
-            f"scene at capacity {setup.capacity}: max |graph - eager| / max "
-            f"|eager| over {len(gate)} fields (scene, Adam moments, densify "
-            f"statistics, loss) {gate[worst]:.3g} ({worst}; gate "
-            f"{STEP_TOL}), eager vs eager {max(spread.values()):.3g} "
-            f"({max(spread, key=spread.get)}); graph vs eager per field "
-            f"{ {k: float(f'{v:.3g}') for k, v in gate.items()} }; the "
-            f"graph step's loss and image unchanged after the next replay")
+            f"scene at capacity {setup.capacity}: all {len(outs[0])} fields "
+            f"(scene, Adam moments, densify statistics, loss, image) of a "
+            f"second eager step and of the graph step bit for bit the first "
+            f"eager step's; the graph step's loss and image unchanged after "
+            f"the next replay")
+    log(line)
+    return line
+
+
+def train_audit(setup, scene):
+    """The determinism diagnostic: one eager train step and one eager
+    densify pass of the trained scene at capacity under
+    ``utils.determinism.audit`` (torch.use_deterministic_algorithms(True,
+    warn_only=True) and the op audit): every op of the train path with no
+    deterministic kernel on the card, or whose kernel adds in no fixed
+    order unless that mode is on.  Raises when it names any -> line."""
+    import torch
+    from gsworld_tpu_torch.train3dgs.densify import densify_and_prune
+    from gsworld_tpu_torch.train3dgs.train import make_train_step
+    from gsworld_tpu_torch.utils.determinism import OpAudit, audit
+    cams, images = setup.split()
+    params = train_params()
+    state = _train_state(setup, scene)
+    step = make_train_step(setup.cfg, params, graph=False)
+    mode = OpAudit()
+    (state, loss, _), found = audit(
+        lambda: step(state, cams[1], images[1]), mode)
+    pts = setup.points
+    gen = torch.Generator(device=setup.device).manual_seed(SEED)
+    _, found_d = audit(lambda: densify_and_prune(
+        state.scene, state.ds, gen,
+        grad_threshold=params.densify_grad_threshold,
+        percent_dense=params.percent_dense,
+        scene_extent=float(np.linalg.norm(pts.max(0) - pts.min(0)) / 2.0)
+        or 1.0))
+    torch.cuda.synchronize()
+    if found or found_d or not math.isfinite(float(loss)):
+        raise AssertionError(f"train path: ops that are not deterministic "
+                             f"on the card: train step {found}, densify "
+                             f"{found_d} (loss {float(loss)})")
+    line = (f"phase 5 determinism: one eager train step ({mode.ops} aten "
+            f"ops) and one densify pass under torch.use_deterministic_"
+            f"algorithms(True, warn_only=True) and the op audit: no op "
+            f"without a deterministic kernel, no scatter- or index-add, "
+            f"accumulating index_put_, convolution or pad backward (the "
+            f"hand-written kernels are not aten ops: csrc/ has no atomic "
+            f"add)")
     log(line)
     return line
 
@@ -1843,7 +1986,7 @@ def phase_closed_loop():
     with no host read between steps)."""
     import gc
     import torch
-    lines, counts4, scan4 = [], None, None
+    lines, counts4, scan4, scanned = [], None, None, {}
     for B, steps in ((NUM_ENVS, LOOP_STEPS), (1, LOOP_STEPS),
                      (64, LOOP_STEPS_64)):
         t0 = time.perf_counter()
@@ -1852,6 +1995,7 @@ def phase_closed_loop():
                                          steps)
         scan_ms, scan_text, scan_counts = scanned_loop(
             wrapper, f"scanned loop B={B}", steps)
+        scanned[B] = scan_ms
         cam = env.cameras[0]
         line = (f"phase 6c closed loop, {B} envs x {len(env.cameras)} cams "
                 f"{cam.width}x{cam.height}, {steps} steps: {text}; "
@@ -1888,6 +2032,7 @@ def phase_closed_loop():
             log(line)
             lines.append(line)
     scan4["reset_per_replay"] = reset4
+    scan4["scanned_ms"] = scanned
     return counts4, scan4, lines
 
 
@@ -2974,12 +3119,14 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
     train_counts = dict(rc.launch_counts)
     # one graph per train call: the warm-up steps and the capture launch
     # from the host, the TRAIN_ITERS replays do not (phase 5 counts the
-    # backward kernel once per replay by the profiler)
-    if train_counts["composite_bwd"] != TrainStepGraph.WARMUP + 1:
-        raise AssertionError(f"7b train: composite_bwd launched "
-                             f"{train_counts['composite_bwd']} times from "
-                             f"the host in {TRAIN_ITERS} iterations (want "
-                             f"{TrainStepGraph.WARMUP + 1}: one capture)")
+    # train path's kernels once per replay by the profiler)
+    for name in TRAIN_KERNELS:
+        if train_counts[name] != TrainStepGraph.WARMUP + 1:
+            raise AssertionError(f"7b train: {name} launched "
+                                 f"{train_counts[name]} times from the "
+                                 f"host in {TRAIN_ITERS} iterations (want "
+                                 f"{TrainStepGraph.WARMUP + 1}: one "
+                                 f"capture)")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("7b train: a loss is not finite")
     bad = {f: int((~torch.isfinite(getattr(scan, f))).reshape(
@@ -3711,7 +3858,7 @@ def phase_demos():
         torch.cuda.empty_cache()
         lines += phase_demo_rrt(tmp)
     counts = {k: sum(r["counts"][k] for r in results.values())
-              for k in ("emit_entries", "composite_tiles", "composite_bwd")}
+              for k in KERNEL_NAMES}
     torch.cuda.empty_cache()
     return counts, lines
 
@@ -4045,6 +4192,90 @@ def phase_fidelity():
     return lines
 
 
+# ---------------------------------------------------------------------- #
+# Phase 10: the port's bench
+# ---------------------------------------------------------------------- #
+
+
+def bench_rows(argv=(), env=None):
+    """``gsworld_tpu_torch.tools.bench.main(argv)`` in this process with
+    the BENCH_* variables ``env`` (and none of the caller's) -> the lines
+    it printed."""
+    import contextlib
+    import io
+    from gsworld_tpu_torch.tools import bench
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env or {})
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            bench.main(list(argv))
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+    return out.getvalue().splitlines()
+
+
+def checked_rows(lines, want_envs, what):
+    """The JSON rows among ``lines``, each logged as ``phase 10 bench``;
+    raises unless they are one row per entry of ``want_envs``, in that
+    order, each with a finite value > 0 and bench.py's vs_baseline."""
+    from gsworld_tpu_torch.tools.bench import REFERENCE_SINGLE_ENV_FPS
+    rows = []
+    for text in lines:
+        log(f"phase 10 bench: {text}")
+        if not text.startswith("#"):
+            rows.append(json.loads(text))
+    envs = [int(r["metric"].split(" envs (")[0].rsplit(" ", 1)[1])
+            for r in rows]
+    if envs != list(want_envs) or not all(
+            math.isfinite(r["value"]) and r["value"] > 0
+            and r["vs_baseline"] == round(r["value"]
+                                          / REFERENCE_SINGLE_ENV_FPS, 2)
+            for r in rows):
+        raise AssertionError(f"phase 10 {what}: rows for {envs} envs "
+                             f"(want {list(want_envs)}): {lines}")
+    return rows
+
+
+def phase_bench(scanned_ms):
+    """10: ``python -m gsworld_tpu_torch.tools.bench`` in process with its
+    defaults (the 1-env, 64-env and 4-env rows, bench.py's order), then its
+    smoke preset, and, where more than one card is visible, the headline
+    with BENCH_SHARD=1: every row present with a finite value > 0; each
+    row's ms per step beside phase 6c's scanned loop at that env count
+    (``scanned_ms``: {envs: ms}) -> lines."""
+    import torch
+    t0 = time.perf_counter()
+    rows = checked_rows(bench_rows(), (1, 64, NUM_ENVS), "defaults")
+    smoke = checked_rows(bench_rows(["--preset", "smoke"]), (1,), "smoke")
+    lines = []
+    for r in rows:
+        n = int(r["metric"].split(" envs (")[0].rsplit(" ", 1)[1])
+        ms = 1e3 * n / r["value"]
+        six = scanned_ms.get(n)
+        lines.append(f"phase 10 bench row {n} envs: {r['value']} env-steps/s"
+                     f" = {ms:.3f} ms per step (phase 6c scanned loop: "
+                     + (f"{six:.3f} ms" if six is not None else "not run")
+                     + ")")
+    if torch.cuda.device_count() > 1:
+        shard = checked_rows(bench_rows(env=dict(BENCH_SHARD="1",
+                                                 BENCH_EXTRA_ROWS="0")),
+                             (NUM_ENVS,), "BENCH_SHARD=1")
+        lines.append(f"phase 10 bench BENCH_SHARD=1 headline over "
+                     f"{torch.cuda.device_count()} cards: "
+                     f"{json.dumps(shard[0])}")
+    lines.append(f"phase 10 bench: defaults {[r['value'] for r in rows]} "
+                 f"env-steps/s at 1, 64, {NUM_ENVS} envs, smoke preset "
+                 f"{smoke[0]['value']} ({time.perf_counter() - t0:.1f} s)")
+    for line in lines:
+        log(line)
+    return lines
+
+
 def main(argv=None):
     import argparse
     import torch
@@ -4072,6 +4303,9 @@ def main(argv=None):
                     help="run phases 1, 2, 6c, the xArm loop of 6d and 9a "
                          "only (the closed loops, eager and scanned) and "
                          "print no result line")
+    ap.add_argument("--bench-only", action="store_true",
+                    help="run phases 1, 2 and 10 only (the port's bench "
+                         "rows) and print no result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_device()
@@ -4098,6 +4332,9 @@ def main(argv=None):
         phase_xarm_loop()
         phase_shard()
         return           # a partial run prints no result line
+    if args.bench_only:
+        phase_bench({})
+        return           # a partial run prints no result line
     if args.train_only:
         renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
         setup = TrainSetup(renderer.scene, TRAIN_RASTER, "cuda")
@@ -4113,8 +4350,8 @@ def main(argv=None):
         f"states and {TRAIN_VIEWS} training views in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(renderer, states[0])
-    bwd_entry, emit_train = phase_backward(setup)
-    kernels.append(bwd_entry)
+    bwd_entry, rows_entry, emit_train = phase_backward(setup)
+    kernels += [bwd_entry, rows_entry]
     # the emit entry's numbers are the render step's; its times on the
     # training frame ride along
     kernels[0]["train_frame"] = {k: emit_train[k] for k in (
@@ -4151,14 +4388,15 @@ def main(argv=None):
     shard_counts, shard_lines = phase_shard()
     shard_lines += phase_fidelity()
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    bench_lines = phase_bench(scan_counts["scanned_ms"])
     # launches: the render path's for its kernels, the training path's for
-    # the backward (every path's counts are in the lines below); the
+    # its two (every path's counts are in the lines below); the
     # closed loop's launches of the forward kernels ride along.  The train
     # path replays one CUDA graph per iteration: its host counts are the
     # capture's (warm-up steps and capture), and the profiler counts one
     # kernel of each per replay (phase 5's lines)
     for k in kernels:
-        k["launches"] = (train_counts if k["name"] == "composite_bwd"
+        k["launches"] = (train_counts if k["name"] in TRAIN_KERNELS
                          else counts)[k["name"]]
         k["train_graph_launches_at_capture"] = train_counts[k["name"]]
         k["train_graph_replays"] = train_graph["replays"]
@@ -4167,7 +4405,7 @@ def main(argv=None):
         k["eager_train_launches"] = eager_train_counts[k["name"]]
         k["real2sim_train_launches"] = scans["train"][k["name"]]
         k["demo_loop_launches"] = demo_counts[k["name"]]
-        if k["name"] != "composite_bwd":
+        if k["name"] not in TRAIN_KERNELS:
             k["closed_loop_launches"] = loop_counts[k["name"]]
             # the scanned loop launches its kernels from a graph replay:
             # the counters move at capture, the profiler counts replays
@@ -4187,7 +4425,7 @@ def main(argv=None):
         log(line)
     log(slice_line)
     for line in (physics_lines + loop_lines + ee_lines + xarm_lines
-                 + scans["lines"] + demo_lines + shard_lines):
+                 + scans["lines"] + demo_lines + shard_lines + bench_lines):
         log(line)
     line = json.dumps({"kernels": kernels})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:

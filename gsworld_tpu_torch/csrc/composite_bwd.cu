@@ -52,14 +52,21 @@
 //   * per entry, a warp's nine sums by a reduce-scatter (14 shuffles
 //     instead of 45: lanes split the fields between them at each step),
 //     then a fixed-order sum over the 8 warps' partials per field.
-// The 4 sub-tiles of a tile each hold a part of every entry's row: each
-// adds its part to the caller-zeroed (F, E, 9) rows with one atomicAdd
-// per non-zero field.  That moves the fewest bytes (a per-sub-tile buffer
-// summed in fixed order would write and read 4x the rows); the price is
-// that the four parts add in no fixed order, as the per-Gaussian
-// index_add_ after it already does.  A cluster reduction of the four
-// parts is not used: each sub-tile leaves its loop on its own early exit,
-// so a cluster barrier inside the loop could deadlock.
+// The ns * ns sub-tiles of a tile (4 at tile 32) each hold a part of
+// every entry's row.  Each stores its part with a plain store into a slot
+// of its own: sub-tile s of a tile writes part s of the caller-zeroed
+// (F, S, E, 9) parts, S = ns * ns.  An entry lies in one tile's segment,
+// so each (entry, part) has exactly one writer, and the wrapper adds the
+// S parts in the order s = 0, 1, ... (rasterize_cuda.composite_bwd); the
+// per-Gaussian sum after it adds in slot order (csrc/entry_rows.cu).  So
+// the backward repeats itself bit for bit, as the JAX kernel, which
+// writes each entry's row once, does.  The parts cost S x the rows' bytes
+// written and read once more (75.5 MB at E = 2^19, tile 32: ~45 us at
+// 3.35 TB/s); atomic adds into one (F, E, 9) array would move fewer
+// bytes but add the parts in whatever order the blocks finish.  A
+// cluster reduction of the parts is not used: each sub-tile leaves its
+// loop on its own early exit, so a cluster barrier inside the loop could
+// deadlock.
 // On NVIDIA H100 80GB HBM3 at 700 W (each form's chip_smoke.py, in turns
 // on one card): 0.98-0.99 ms on the training frame against 6.26-6.39,
 // within 1.6e-6 of the plain version, as the earlier form.  Walking four
@@ -130,8 +137,10 @@ __global__ void __launch_bounds__(kThreads) composite_bwd_kernel(
     const float* __restrict__ T_img,  // (F, H, W) forward final T
     const float* __restrict__ img_ct, // (F, H, W, 3)
     const float* __restrict__ T_ct,   // (F, H, W)
-    float* __restrict__ out,          // (F, E, 9), zeroed by the caller
-    int E, int T, int gx, int tile, int W, int H, float log_alpha_min) {
+    float* __restrict__ out,          // (F, n_parts, E, 9) parts,
+                                      // zeroed by the caller
+    int E, int n_parts, int T, int gx, int tile, int W, int H,
+    float log_alpha_min) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
@@ -140,6 +149,7 @@ __global__ void __launch_bounds__(kThreads) composite_bwd_kernel(
   const int s = starts[(long long)f * (T + 1) + st.t];
   const int e = starts[(long long)f * (T + 1) + st.t + 1];
   const float* rec_f = rec + (long long)f * E * kRec;
+  float* out_part = out + ((long long)f * n_parts + st.s) * E * kRow;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -239,19 +249,28 @@ __global__ void __launch_bounds__(kThreads) composite_bwd_kernel(
       float v = 0.0f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) v += sm.part[w][j][c];
-      if (v != 0.0f)
-        atomicAdd(&out[((long long)f * E + base + sm.list[j]) * kRow + c], v);
+      // this sub-tile's part of the entry's row: no other block writes it
+      if (v != 0.0f) out_part[(long long)(base + sm.list[j]) * kRow + c] = v;
     }
   }
 }
 
 }  // namespace
 
+// Parts per entry row of gsw_composite_bwd's output: the sub-tiles per
+// tile.  The caller sizes the (F, n_parts, E, 9) parts by it.
+extern "C" int gsw_composite_bwd_parts(int tile) {
+  return gsw::sub_tiles(tile);
+}
+
 extern "C" int gsw_composite_bwd(
     const void* starts, const void* rec, const void* img, const void* T_img,
-    const void* img_ct, const void* T_ct, void* out, int F, int E, int T,
-    int gx, int tile, int W, int H, float log_alpha_min, void* stream) {
+    const void* img_ct, const void* T_ct, void* out, int F, int E,
+    int n_parts, int T, int gx, int tile, int W, int H, float log_alpha_min,
+    void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  // out holds n_parts parts: one per sub-tile, or the writes overrun it
+  if (n_parts != gsw::sub_tiles(tile)) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
   // the shared-memory opt-in is a setting of the current device: set it
   // once per device
@@ -271,6 +290,6 @@ extern "C" int gsw_composite_bwd(
   composite_bwd_kernel<<<grid, gsw::kThreads, smem, st>>>(
       (const int*)starts, (const float*)rec, (const float*)img,
       (const float*)T_img, (const float*)img_ct, (const float*)T_ct,
-      (float*)out, E, T, gx, tile, W, H, log_alpha_min);
+      (float*)out, E, n_parts, T, gx, tile, W, H, log_alpha_min);
   return (int)cudaGetLastError();
 }

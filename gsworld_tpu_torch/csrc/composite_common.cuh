@@ -153,6 +153,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // sub-tiles per tile; the thread's pixel and the sub-tile's pixel box.
 struct SubTile {
   int t;          // tile
+  int s;          // sub-tile within the tile, 0 .. ns * ns - 1
   int x, y;       // this thread's pixel
   bool valid;     // the pixel lies in the tile and the image
   float bx0, bx1, by0, by1;  // the sub-tile's pixel box (inside the tile)
@@ -171,6 +172,7 @@ __device__ __forceinline__ SubTile sub_tile(int gx, int tile, int W, int H) {
   const int ty0 = (t / gx) * tile;
   SubTile st;
   st.t = t;
+  st.s = s;
   const int lx = lx0 + threadIdx.x % sub;
   const int ly = ly0 + threadIdx.x / sub;
   st.x = tx0 + lx;
@@ -188,12 +190,15 @@ __device__ __forceinline__ SubTile sub_tile(int gx, int tile, int W, int H) {
   return st;
 }
 
-// Blocks per frame: T tiles x sub-tiles per tile.
-inline int blocks_per_frame(int T, int tile) {
+// Sub-tiles per tile (ns * ns).
+inline int sub_tiles(int tile) {
   const int sub = tile < kSub ? tile : kSub;
   const int ns = (tile + sub - 1) / sub;
-  return T * ns * ns;
+  return ns * ns;
 }
+
+// Blocks per frame: T tiles x sub-tiles per tile.
+inline int blocks_per_frame(int T, int tile) { return T * sub_tiles(tile); }
 
 // Cull the n records of ``recs`` against the sub-tile box and compact the
 // survivors' batch indices, in order, into ``list``; returns their count.

@@ -42,6 +42,11 @@ class EntryBins(NamedTuple):
     gaussian: torch.Tensor  # (F, E) int32 Gaussian id per sorted entry
     starts: torch.Tensor    # (F, T+1) int32 per-tile segment starts
     overflow: torch.Tensor  # (F,) int64 entries dropped by the D / E caps
+    # what a fixed-order sum per Gaussian needs (rasterize_cuda.
+    # sum_entry_rows): the slot layout and the key sort's permutation
+    ends: torch.Tensor      # (F, N) int32 inclusive slot ends in Gaussian
+    #                         order: Gaussian g owns ends[g-1] .. ends[g]-1
+    perm: torch.Tensor      # (F, E) int64 sorted position -> f * E + slot
 
 
 class EmitPlan(NamedTuple):
@@ -97,7 +102,9 @@ def plan_emit(proj: Projected, cfg: RasterConfig) -> EmitPlan:
 
 def sort_entries(keys: torch.Tensor, gid: torch.Tensor, T: int):
     """Radix-sort the (F, E) emit keys; -> (sorted Gaussian ids (F, E),
-    per-tile starts (F, T+1) int32)."""
+    per-tile starts (F, T+1) int32, the sort's permutation (F, E) int64:
+    sorted position -> f * E + slot, so ``gid.reshape(-1)[perm]`` is the
+    sorted ids)."""
     F, E = keys.shape
     dev = keys.device
     keys_s, perm = torch.sort(keys.reshape(-1), stable=True)
@@ -107,7 +114,7 @@ def sort_entries(keys: torch.Tensor, gid: torch.Tensor, T: int):
               + torch.arange(T + 1, device=dev, dtype=torch.int64)) << 32
     starts = (torch.searchsorted(keys_s, bounds.reshape(-1)).reshape(F, T + 1)
               - fr[:, None] * E).to(torch.int32)
-    return gaussian, starts
+    return gaussian, starts, perm.reshape(F, E)
 
 
 def bin_entries_fused(proj: Projected, cfg: RasterConfig) -> EntryBins:
@@ -115,5 +122,6 @@ def bin_entries_fused(proj: Projected, cfg: RasterConfig) -> EntryBins:
     ranges."""
     plan = plan_emit(proj, cfg)
     keys, gid = emit_entries(**plan.args)
-    gaussian, starts = sort_entries(keys, gid, cfg.num_tiles)
-    return EntryBins(gaussian=gaussian, starts=starts, overflow=plan.overflow)
+    gaussian, starts, perm = sort_entries(keys, gid, cfg.num_tiles)
+    return EntryBins(gaussian=gaussian, starts=starts, overflow=plan.overflow,
+                     ends=plan.args["ends"], perm=perm)

@@ -11,7 +11,8 @@ cost nothing when no profiler runs.
 Without semantics the render is differentiable with respect to the
 projected floats through :class:`CompositeFunction` (forward: the
 compositor, which also returns the sorted entries' records; backward: the
-backward kernel on those records, then a scatter-add per Gaussian).
+backward kernel on those records, then a sum per Gaussian in slot order,
+so the backward repeats itself bit for bit).
 Binning is integer plumbing and runs on detached tensors, as the JAX
 package's ``stop_gradient`` does; the segmentation path is not
 differentiable.
@@ -29,42 +30,43 @@ from gsworld_tpu_torch.render.project import Projected, project_gaussians
 from gsworld_tpu_torch.render.rasterize_cuda import (
     composite_bwd,
     composite_tiles,
-    scatter_entry_rows,
+    sum_entry_rows,
 )
 
 
 class CompositeFunction(torch.autograd.Function):
     """Differentiable compositor over frame-batched floats (F, N, ...).
 
-    ``apply(mean2d, conic, opacity, color, starts, gaussian, cfg)`` ->
-    (img (F, H, W, 3), T (F, H, W)).  The backward returns per-frame
-    gradients shaped like the inputs; autograd sums frames that share a
-    scene."""
+    ``apply(mean2d, conic, opacity, color, bins, cfg)`` -> (img (F, H, W,
+    3), T (F, H, W)), ``bins`` the frames' ``EntryBins``.  The backward
+    returns per-frame gradients shaped like the inputs; autograd sums
+    frames that share a scene."""
 
     @staticmethod
-    def forward(ctx, mean2d, conic, opacity, color, starts, gaussian,
+    def forward(ctx, mean2d, conic, opacity, color, bins: EntryBins,
                 cfg: RasterConfig):
         img, T_img, _, records = composite_tiles(
-            starts, gaussian, mean2d, conic, opacity, color, None,
+            bins.starts, bins.gaussian, mean2d, conic, opacity, color, None,
             width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
         ctx.cfg = cfg
-        ctx.save_for_backward(mean2d, conic, opacity, color, starts,
-                              gaussian, img, T_img, records)
+        ctx.save_for_backward(mean2d, conic, opacity, color, bins.starts,
+                              bins.gaussian, bins.ends, bins.perm, img,
+                              T_img, records)
         return img, T_img
 
     @staticmethod
     def backward(ctx, img_ct, T_ct):
-        (mean2d, conic, opacity, color, starts, gaussian, img, T_img,
-         records) = ctx.saved_tensors
+        (mean2d, conic, opacity, color, starts, gaussian, ends, perm, img,
+         T_img, records) = ctx.saved_tensors
         cfg = ctx.cfg
         with record_function("gsw.composite_bwd"):
             rows = composite_bwd(
                 starts, gaussian, mean2d, conic, opacity, color, img, T_img,
                 img_ct.contiguous(), T_ct.contiguous(), width=cfg.width,
                 height=cfg.height, tile=cfg.tile, records=records)
-            acc = scatter_entry_rows(rows, gaussian, opacity.shape[1])
+            acc = sum_entry_rows(rows, perm, ends)
         return (acc[..., 0:2], acc[..., 2:5], acc[..., 8], acc[..., 5:8],
-                None, None, None)
+                None, None)
 
 
 def project_frames(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0,
@@ -95,8 +97,8 @@ def render_projected(flat: Projected, cfg: RasterConfig, semantics=None):
     with record_function("gsw.composite"):
         if semantics is None:
             img, T_img = CompositeFunction.apply(
-                flat.mean2d, flat.conic, flat.opacity, flat.color,
-                bins.starts, bins.gaussian, cfg)
+                flat.mean2d, flat.conic, flat.opacity, flat.color, bins,
+                cfg)
             return img, T_img, None, bins
         with torch.no_grad():
             img, T_img, seg, _ = composite_tiles(

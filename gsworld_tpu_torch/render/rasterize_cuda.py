@@ -1,5 +1,5 @@
-"""The three hand-written CUDA kernels of the render and training paths,
-their plain PyTorch versions, the build, and launch counts.
+"""The hand-written CUDA kernels of the render and training paths, their
+plain PyTorch versions, the build, and launch counts.
 
   * ``emit_entries``    <- gsworld_tpu/render/rasterize_pallas.py:_emit_kernel
                            (csrc/emit.cu)
@@ -7,13 +7,17 @@ their plain PyTorch versions, the build, and launch counts.
                            (csrc/composite.cu)
   * ``composite_bwd``   <- gsworld_tpu/render/rasterize_pallas.py:_bwd_kernel
                            (csrc/composite_bwd.cu)
+  * ``sum_entry_rows``  <- the scatter-add after it in composite_bwd_pallas
+                           (csrc/entry_rows.cu; an XLA scatter in JAX, not
+                           a Pallas kernel)
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (the CPU tests), a CUDA tensor launches the kernel or raises.
 Nothing on the CUDA path falls back to the plain version.
 
 Build: at first use the sources in ``csrc/`` are compiled with ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface under
+for ``sm_90a``, one process per source, all started together, and
+linked into one shared library with a plain C interface under
 ``_build/`` (listed in .gitignore), named by a hash of the sources, the
 headers and the flags, and bound with ctypes.  Each C entry returns
 ``cudaGetLastError()`` after its launches.
@@ -36,13 +40,12 @@ import torch
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("emit.cu", "composite.cu", "composite_bwd.cu")
+SOURCES = ("emit.cu", "composite.cu", "composite_bwd.cu", "entry_rows.cu")
 # --fmad=false: every f32 product rounds on its own, as in the plain
 # PyTorch versions, so kernel and plain version agree to the last bits
 # (the alpha cull's threshold compare is the sensitive one)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 ALPHA_MIN = 1.0 / 255.0
 LOG_ALPHA_MIN = float(np.log(np.float32(ALPHA_MIN)))
@@ -53,7 +56,8 @@ PLAIN_CHUNK = 64  # entries per step of the plain compositor
 
 # launches of each kernel since the last reset; the plain versions do not
 # count
-launch_counts = {"emit_entries": 0, "composite_tiles": 0, "composite_bwd": 0}
+launch_counts = {"emit_entries": 0, "composite_tiles": 0, "composite_bwd": 0,
+                 "sum_entry_rows": 0}
 
 
 def reset_launch_counts():
@@ -78,9 +82,10 @@ def _nvcc() -> str:
 
 def compile_library(sources, defines=()) -> Path:
     """Compile the CUDA ``sources`` (paths; headers beside them) with
-    NVCC_FLAGS and a ``-D`` for each of ``defines`` into one shared
-    library under ``_build/``, unless a build of the same sources, headers
-    and flags is there.  -> its path."""
+    NVCC_FLAGS and a ``-D`` for each of ``defines``, one ``nvcc -c`` per
+    source, all started together, and link them into one shared library
+    under ``_build/``, unless a build of the same sources, headers and
+    flags is there.  -> its path."""
     sources = [Path(p) for p in sources]
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     h = hashlib.sha256(" ".join(flags).encode())
@@ -89,18 +94,29 @@ def compile_library(sources, defines=()) -> Path:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     so_path = BUILD_DIR / f"libgsw_kernels_{h.hexdigest()[:16]}.so"
-    if not so_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _Library.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+    if so_path.exists():
+        return so_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{i}_{p.stem}.o")
+                for i, p in enumerate(sources)]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, str(p)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(sources, objs)]
+        _Library.build_log = "".join(proc.communicate()[0] for proc in procs)
+        rcs = [proc.returncode for proc in procs]
+        lib = os.path.join(tmp, "lib.so")
+        if not any(rcs):
+            link = subprocess.run([nvcc, *flags[:2], "-shared", "-o", lib,
+                                   *objs], capture_output=True, text=True)
+            _Library.build_log += link.stdout + link.stderr
+            rcs.append(link.returncode)
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed ({rcs}):\n"
                                + _Library.build_log)
-        os.replace(tmp, so_path)
+        os.replace(lib, so_path)
     return so_path
 
 
@@ -122,8 +138,12 @@ def build_kernels() -> ctypes.CDLL:
     bind_emit(lib)
     lib.gsw_composite_tiles.argtypes = [P] * 11 + [I] * 8 + [Fl] * 5 + [P]
     lib.gsw_composite_tiles.restype = I
-    lib.gsw_composite_bwd.argtypes = [P] * 7 + [I] * 7 + [Fl, P]
+    lib.gsw_composite_bwd_parts.argtypes = [I]
+    lib.gsw_composite_bwd_parts.restype = I
+    lib.gsw_composite_bwd.argtypes = [P] * 7 + [I] * 8 + [Fl, P]
     lib.gsw_composite_bwd.restype = I
+    lib.gsw_sum_entry_rows.argtypes = [P] * 5 + [I] * 3 + [P]
+    lib.gsw_sum_entry_rows.restype = I
     _Library.lib = lib
     return lib
 
@@ -731,7 +751,11 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
     them).
     Returns (F, E, 9) rows [d mean2d (2), d conic (3), d colour (3),
     d opacity] per sorted entry, zero beyond the live segments; the
-    per-Gaussian gradient is their scatter-add by ``gaussian``."""
+    per-Gaussian gradient is their sum per Gaussian
+    (:func:`sum_entry_rows`).  On the card each of a tile's S sub-tile
+    blocks writes its part of an entry's row into a part of its own, and
+    the parts are added here in the order 0 .. S-1: the same inputs give
+    the same bits every time."""
     if mean2d.device.type == "cpu":
         return composite_bwd_reference(
             starts, gaussian, mean2d, conic, opacity, color, img, T_img,
@@ -760,24 +784,79 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
             _require(t, name, dt, shp, dev)
         _require(records, "records", f32, (F, E, RECORD_FIELDS), dev)
         lib = build_kernels()
-        out = torch.zeros((F, E, BWD_FIELDS), dtype=f32, device=dev)
+        S = lib.gsw_composite_bwd_parts(tile)     # sub-tiles per tile
+        parts = torch.zeros((F, S, E, BWD_FIELDS), dtype=f32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gsw_composite_bwd(
             starts.data_ptr(), records.data_ptr(), img.data_ptr(),
             T_img.data_ptr(), img_ct.data_ptr(), T_ct.data_ptr(),
-            out.data_ptr(), F, E, T, gx, tile, width, height, LOG_ALPHA_MIN,
-            stream)
+            parts.data_ptr(), F, E, S, T, gx, tile, width, height,
+            LOG_ALPHA_MIN, stream)
         _check(lib, rc, "composite_bwd")
         launch_counts["composite_bwd"] += 1
-        return out
+        out = parts[:, 0]
+        for q in range(1, S):
+            out = out + parts[:, q]
+        return out.contiguous()
 
 
-def scatter_entry_rows(rows, gaussian, N: int):
-    """Scatter-add per-entry rows (F, E, K) into per-Gaussian sums
-    (F, N, K) by the entries' Gaussian ids (rows of unused entries are
-    zero).  ``index_add_`` on the card adds in no fixed order."""
+# --------------------------------------------------------------------- #
+# per-Gaussian sum of the entry rows
+# --------------------------------------------------------------------- #
+
+def sum_entry_rows_reference(rows, perm, ends):
+    """Plain PyTorch version of :func:`sum_entry_rows` (same inputs and
+    output), adding in the kernel's order: the rows are gathered to slot
+    order, then step k < the largest count adds each Gaussian's k-th
+    slot's row (+0.0 past its count, which changes no sum)."""
     F, E, K = rows.shape
-    idx = ((torch.arange(F, device=rows.device) * N)[:, None]
-           + gaussian.long().clamp_min(0)).reshape(-1)
-    acc = torch.zeros((F * N, K), dtype=rows.dtype, device=rows.device)
-    return acc.index_add_(0, idx, rows.reshape(-1, K)).reshape(F, N, K)
+    N = ends.shape[1]
+    dev = rows.device
+    pos = torch.empty((F * E,), dtype=torch.int64, device=dev)
+    pos[perm.reshape(-1)] = torch.arange(F * E, device=dev)
+    slot_rows = rows.reshape(F * E, K)[pos].reshape(F, E, K)
+    ends = ends.long()
+    first = torch.nn.functional.pad(ends[:, :-1], (1, 0))
+    cnt = ends - first
+    acc = torch.zeros((F, N, K), dtype=rows.dtype, device=dev)
+    zero = torch.zeros((), dtype=rows.dtype, device=dev)
+    for k in range(int(cnt.max()) if cnt.numel() else 0):
+        idx = (first + k).clamp_max(E - 1)
+        r = torch.gather(slot_rows, 1, idx[..., None].expand(F, N, K))
+        acc = acc + torch.where((k < cnt)[..., None], r, zero)
+    return acc
+
+
+def sum_entry_rows(rows, perm, ends):
+    """Per-Gaussian sums (F, N, K) of the per-entry rows ``rows`` (F, E, K)
+    f32 at sorted positions, in a fixed order: Gaussian g adds the rows of
+    its slots ``ends[g-1] .. ends[g] - 1`` in slot order, each read at its
+    sorted position.  ``perm`` (F, E) int64 is the key sort's permutation
+    (sorted position -> f * E + slot) and ``ends`` (F, N) int32 the
+    inclusive slot ends (both from ``EntryBins``).  The same inputs give
+    the same bits every time, as the JAX package's scatter-add does; an
+    ``index_add_`` on the card adds in no fixed order.  On the card one
+    launch of csrc/entry_rows.cu; on the CPU the plain version."""
+    if rows.device.type == "cpu":
+        return sum_entry_rows_reference(rows, perm, ends)
+    dev = _cuda_device(rows, "sum_entry_rows")
+    with torch.cuda.device(dev):     # the stream's device is current
+        F, E, K = rows.shape
+        N = ends.shape[1]
+        if K != BWD_FIELDS:
+            raise ValueError(f"rows have {K} fields, expected {BWD_FIELDS}")
+        _require(rows, "rows", torch.float32, (F, E, K), dev)
+        _require(perm, "perm", torch.int64, (F, E), dev)
+        _require(ends, "ends", torch.int32, (F, N), dev)
+        if E >= 2 ** 31:
+            raise ValueError("slot indices do not fit the kernel's int32")
+        lib = build_kernels()
+        pos = torch.empty((F, E), dtype=torch.int32, device=dev)
+        out = torch.empty((F, N, K), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gsw_sum_entry_rows(rows.data_ptr(), perm.data_ptr(),
+                                    ends.data_ptr(), pos.data_ptr(),
+                                    out.data_ptr(), F, N, E, stream)
+        _check(lib, rc, "sum_entry_rows")
+        launch_counts["sum_entry_rows"] += 1
+        return out

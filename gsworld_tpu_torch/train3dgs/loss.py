@@ -2,14 +2,17 @@
 
 The Inria trainer's ``l1_loss + lambda_dssim * (1 - ssim)`` with
 lambda_dssim = 0.2.  SSIM's 11x11 Gaussian window (sigma 1.5) runs as two
-separable depthwise convolutions on edge-padded input, rows then columns,
-as the JAX package does.  Images are (H, W, C).
+separable passes over edge-padded input, rows then columns, as the JAX
+package does.  Each pass is eleven shifted adds in a fixed order, and so
+is its backward: on the card a depthwise convolution may take a cuDNN
+algorithm that adds in no fixed order, and the backward of a replicate
+pad adds its edge rows with atomics, so the train step would not repeat
+itself.  Images are (H, W, C).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 _WINDOW = 11
 _SIGMA = 1.5
@@ -17,22 +20,61 @@ C1 = 0.01 ** 2
 C2 = 0.03 ** 2
 
 
-def _gaussian_kernel(dtype, device):
-    x = torch.arange(_WINDOW, dtype=dtype, device=device) - (_WINDOW - 1) / 2.0
+def _gaussian_taps(dtype):
+    """The normalised window's eleven weights, rounded to ``dtype``, as
+    Python floats (made on the host: nothing to read from the device)."""
+    x = torch.arange(_WINDOW, dtype=dtype) - (_WINDOW - 1) / 2.0
     g = torch.exp(-(x ** 2) / (2 * _SIGMA ** 2))
-    return g / g.sum()
+    return (g / g.sum()).tolist()
+
+
+def _shifted_sum(src, dim: int, n: int, taps):
+    """sum_k taps[k] * src[k : k + n] along ``dim``, added in the order
+    k = 0, 1, ..."""
+    out = src.narrow(dim, 0, n) * taps[0]
+    for k in range(1, len(taps)):
+        out.add_(src.narrow(dim, k, n), alpha=taps[k])
+    return out
+
+
+class _EdgeBlur(torch.autograd.Function):
+    """``apply(x, dim, taps)``: y[i] = sum_k taps[k] x[clamp(i + k - h, 0,
+    n - 1)] along ``dim`` (n = x.shape[dim], h = len(taps) // 2), the
+    edge-padded 1-D blur.  Forward and backward are shifted adds in a
+    fixed order: the backward adds taps[k] * dy into the padded gradient
+    at offset k, k = 0, 1, ..., then folds the h padded rows at each end
+    onto the edge row, nearest first."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, taps):
+        n = x.shape[dim]
+        h = len(taps) // 2
+        first, last = x.narrow(dim, 0, 1), x.narrow(dim, n - 1, 1)
+        xp = torch.cat([first] * h + [x] + [last] * h, dim)
+        ctx.dim, ctx.taps = dim, taps
+        return _shifted_sum(xp, dim, n, taps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dim, taps = ctx.dim, ctx.taps
+        n = dy.shape[dim]
+        h = len(taps) // 2
+        shape = list(dy.shape)
+        shape[dim] = n + 2 * h
+        dp = dy.new_zeros(shape)
+        for k, t in enumerate(taps):
+            dp.narrow(dim, k, n).add_(dy, alpha=t)
+        dx = dp.narrow(dim, h, n).clone()
+        for j in range(h):
+            dx.narrow(dim, 0, 1).add_(dp.narrow(dim, h - 1 - j, 1))
+            dx.narrow(dim, n - 1, 1).add_(dp.narrow(dim, n + h + j, 1))
+        return dx, None, None
 
 
 def _blur(x):
     """Separable 11x11 Gaussian blur with edge padding; x (C, H, W)."""
-    c = x.shape[0]
-    g = _gaussian_kernel(x.dtype, x.device)
-    h = _WINDOW // 2
-    x = F.conv2d(F.pad(x[None], (0, 0, h, h), mode="replicate"),
-                 g.reshape(1, 1, _WINDOW, 1).repeat(c, 1, 1, 1), groups=c)
-    x = F.conv2d(F.pad(x, (h, h, 0, 0), mode="replicate"),
-                 g.reshape(1, 1, 1, _WINDOW).repeat(c, 1, 1, 1), groups=c)
-    return x[0]
+    taps = _gaussian_taps(x.dtype)
+    return _EdgeBlur.apply(_EdgeBlur.apply(x, 1, taps), 2, taps)
 
 
 def ssim(img1, img2):

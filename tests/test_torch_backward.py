@@ -88,7 +88,7 @@ def test_plain_backward_matches_autograd_f64():
         tile=tile)
     assert rows.shape == (1, cfg.max_entries, rc.BWD_FIELDS)
     assert not rows[0, int(bins.starts[0, -1]):].any()
-    acc = rc.scatter_entry_rows(rows, bins.gaussian, 40)
+    acc = rc.sum_entry_rows(rows, bins.perm, bins.ends)
     got = (acc[..., 0:2], acc[..., 2:5], acc[..., 8], acc[..., 5:8])
     for name, a, b in zip(("mean2d", "conic", "opacity", "color"), want, got):
         scale = float(a.abs().max())
@@ -109,8 +109,7 @@ def test_composite_function_gradcheck_f64():
                 (proj.mean2d, proj.conic, proj.opacity, proj.color))
 
     def f(*floats):
-        return CompositeFunction.apply(*floats, bins.starts, bins.gaussian,
-                                       cfg)
+        return CompositeFunction.apply(*floats, bins, cfg)
 
     assert torch.autograd.gradcheck(f, ins, eps=1e-6, atol=1e-5, rtol=1e-3,
                                     fast_mode=True)
@@ -174,7 +173,7 @@ def test_composite_function_matches_jax_pallas(loss):
     v_j, g_j = jax.value_and_grad(jloss)(floats)
     img, T = CompositeFunction.apply(port["mean2d"], port["conic"],
                                      port["opacity"], port["color"],
-                                     bins.starts, bins.gaussian, cfg)
+                                     bins, cfg)
     if Wt is not None:
         v_p = (img[0] * torch.as_tensor(Wt)).sum()
     else:

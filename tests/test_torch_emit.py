@@ -258,7 +258,7 @@ def _rank_order_bins(proj, cfg):
         tile=cfg.tile, cull_alpha=cfg.cull_alpha)
     gid = torch.where(rank >= 0, torch.gather(
         order, 1, rank.clamp_min(0).long()).to(torch.int32), rank)
-    gaussian, starts = sort_entries(keys, gid, cfg.num_tiles)
+    gaussian, starts, _ = sort_entries(keys, gid, cfg.num_tiles)
     overflow = torch.as_tensor(area.sum(-1)) - cnt_b.sum(-1)
     return gaussian, starts, overflow
 
