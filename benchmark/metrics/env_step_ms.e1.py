@@ -1,0 +1,6 @@
+"""``env_step_ms``, in the one-env loop, where it moves that cell's own rate
+(``env_steps_per_s.e1``, under its own bound): read as ``env_step_ms``."""
+
+from benchmark.harness import reader
+
+read = reader("env_step_ms").read
