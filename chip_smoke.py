@@ -969,9 +969,9 @@ def phase_slice(renderer, states):
 
 
 def phase_profile(phase, what, step):
-    """torch.profiler over 3 calls of ``step(i)``: device time per gsw.*
-    stage and per kernel, and the device's busy share of the window
-    (diagnostic; reports "not measured" instead of failing the run).
+    """torch.profiler over 3 calls of ``step(i)``: device time per kernel,
+    and the device's busy share of the window (diagnostic; reports "not
+    measured" instead of failing the run).
     ``what`` names the steps ("render", "train")."""
     import torch
     from torch.autograd import DeviceType
@@ -991,25 +991,10 @@ def phase_profile(phase, what, step):
             ((e.self_device_time_total, e.count, e.key) for e in avg
              if e.device_type == DeviceType.CUDA
              and not e.key.startswith("gsw.")), reverse=True)
-        # per gsw.* range: kernel time inside it (host-side row), its span
-        # on the device timeline (device-side row), host time
-        stages = {}
-        for e in avg:
-            if e.key.startswith("gsw."):
-                st = stages.setdefault(e.key, [0.0, 0.0, 0.0])
-                if e.device_type == DeviceType.CUDA:
-                    st[1] = e.device_time_total
-                else:
-                    st[0], st[2] = e.device_time_total, e.cpu_time_total
-        stages = [(k, *v) for k, v in stages.items()]
         busy = sum(k[0] for k in kernels)
         with open(os.path.join(OUT_DIR, f"profile_{what}.txt"), "w") as f:
             f.write(f"wall {wall * 1e3:.3f} ms over 3 {what} steps "
                     f"(profiler on), kernel time {busy / 1e3:.3f} ms\n")
-            for key, dev, span, cpu in stages:
-                f.write(f"stage {key}: kernels {dev / 1e3:.3f} ms, device "
-                        f"span {span / 1e3:.3f} ms, host {cpu / 1e3:.3f} "
-                        f"ms\n")
             for t, n, k in kernels:
                 f.write(f"{t / 1e3:12.3f} ms {n:6d}  {k}\n")
         if busy == 0:
@@ -1019,10 +1004,6 @@ def phase_profile(phase, what, step):
         log(f"phase {phase} profile (3 {what} steps, profiler on): wall "
             f"{wall * 1e3 / 3:.3f} ms/step, kernels {busy / 1e3 / 3:.3f} "
             f"ms/step, device busy {100 * busy / 1e3 / (wall * 1e3):.1f}%")
-        for key, dev, span, cpu in stages:
-            log(f"    stage {key:14s} kernels {dev / 1e3 / 3:8.3f}, device "
-                f"span {span / 1e3 / 3:8.3f}, host {cpu / 1e3 / 3:8.3f} "
-                f"ms/step")
         for t, n, k in kernels[:8]:
             log(f"    kernel {t / 1e3 / 3:8.3f} ms/step x{n // 3:<4d} "
                 f"{k[:80]}")
@@ -1438,7 +1419,7 @@ def phase_train(setup):
     losses, held-out PSNR and returned scene bit for bit; the graph's calls
     and the profiler's kernels per replay in each graph run; the audit of one
     eager step and densify pass; one step graph vs eager and eager vs
-    eager bit for bit; the eager step's stages by the profiler."""
+    eager bit for bit; the eager step's kernels by the profiler."""
     every = {True: [], False: []}
     for _ in range(TRAIN_REPEATS):
         for g in (True, False):
@@ -1513,6 +1494,33 @@ def _train_state(setup, scene):
                       opt_state=adam_init(scene), step=0)
 
 
+def replay_stamps(what, replay, tags, n=3):
+    """``replay(i)`` n times under ``utils.profiling.recording()``: the
+    stamp ring holds the entry anchor, n times ``tags`` and the exit
+    anchor, in that order, at rising device times, none lost; every
+    device span positive -> text (mean ms of each span)."""
+    from gsworld_tpu_torch.utils import profiling as P
+    with P.recording() as rec:
+        for i in range(n):
+            replay(i)
+    e = rec._drain()
+    want = ["anchor"] + list(tags) * n + ["anchor"]
+    rising = all(int(a) < int(b) for a, b in zip(e.ns, e.ns[1:]))
+    dev = rec.device_spans()
+    if e.lost or e.tags != want or not rising or any(
+            x.start_ns >= x.end_ns for x in dev):
+        raise AssertionError(f"{what}: stamps {e.tags} (want {want}), "
+                             f"lost {e.lost}, rising {rising}")
+    means = {}
+    for x in dev:
+        means.setdefault(x.name, []).append((x.end_ns - x.start_ns) / 1e6)
+    return (f"{n} replays stamped {len(e.tags) - 2} tags in order at rising "
+            f"times, none lost (anchor error "
+            f"{rec.anchor_error_ns / 1e3:.1f} us; "
+            + ", ".join(f"{k} {statistics.fmean(v):.3f} ms"
+                        for k, v in means.items()) + ")")
+
+
 def train_step_graph_vs_eager(setup, scene):
     """One train step from one state (the trained scene after one eager
     step, so that Adam's moments hold a gradient), eagerly twice and
@@ -1550,6 +1558,10 @@ def train_step_graph_vs_eager(setup, scene):
     if not (torch.equal(loss, kept[0]) and torch.equal(img, kept[1])):
         raise AssertionError("train step: the graph step's loss or image "
                              "changed at the next step")
+    stamps = replay_stamps(
+        "5 train step graph", lambda i: train_step(st, cams[i], images[i]),
+        ("train.begin", "train.forward|backward", "train.backward|update",
+         "train.end"))
 
     def differ(a, b):
         """-> {field: max |a - b| / max |b|} of the fields whose bits
@@ -1568,7 +1580,7 @@ def train_step_graph_vs_eager(setup, scene):
             f"(scene, Adam moments, densify statistics, loss, image) of a "
             f"second eager step and of the graph step bit for bit the first "
             f"eager step's; the graph step's loss and image unchanged after "
-            f"the next replay")
+            f"the next replay; {stamps}")
     log(line)
     return line
 
@@ -1672,7 +1684,7 @@ def densify_graph_vs_eager(setup, scene):
 
 def profile_train(setup, scene):
     """The trained scene's eager train step (padded back to its capacity,
-    fresh optimizer state): 3 steps under the profiler by stage
+    fresh optimizer state): 3 steps under the profiler by kernel
     (``phase_profile``)."""
     from gsworld_tpu_torch.train3dgs.train import make_train_step
     cams, images = setup.split()
@@ -1919,7 +1931,7 @@ def phase_physics():
                 f"PR 5's state (episode from the card's generator, "
                 f"{GRAPH_STEPS} steps)")
 
-    # ---- profile by stage (eager: the ranges mark the launches)
+    # ---- profile by kernel, eager and through the graph
     env_e, env_g = keep[False][0], keep[True][0]
     acts = seeded_actions(env_e, 3, seed=SEED + 11)
     phase_profile("6a", "env_step_eager", lambda i: env_e.step(acts[i]))
@@ -2016,6 +2028,14 @@ def phase_closed_loop():
                                   env.action_space_sample()))
             line = (f"phase 6c graph vs eager, {B} envs: "
                     + graph_vs_eager(wrapper, "6c closed loop"))
+            log(line)
+            lines.append(line)
+            env.graph = True
+            line = (f"phase 6c stamps of the closed-loop step graph, {B} "
+                    f"envs: " + replay_stamps(
+                        "6c closed-loop step graph",
+                        lambda i: wrapper.step(env.action_space_sample()),
+                        ("loop.begin", "loop.physics|render", "loop.end")))
             log(line)
             lines.append(line)
             reset_text, reset4 = reset_render_vs_eager(wrapper,
@@ -4361,7 +4381,7 @@ def main(argv=None):
         log(json.dumps({"kernels": kernels}))
         return           # a partial run prints no result line
     counts, slice_line, render_per_replay = phase_slice(renderer, states)
-    # the eager render's stages (a replay shows kernels only)
+    # the eager render's kernels
     renderer.env.graph = False
     phase_profile(4, "render", lambda i: renderer.render(states[i]))
     renderer.env.graph = True

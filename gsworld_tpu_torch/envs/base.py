@@ -58,6 +58,8 @@ from gsworld_tpu_torch.physics.world import (
     world_state_to_numpy,
 )
 from gsworld_tpu_torch.utils.cuda_graph import FnGraph, capture, clone_tree
+from gsworld_tpu_torch.utils.profiling import (count, host_waits, span,
+                                               stamp)
 
 # SAPIEN camera convention -> OpenCV
 SAPIEN2OPENCV = np.array([
@@ -230,13 +232,16 @@ class StepGraph:
     after WARMUP steps on clones of the state, which fill every lazy cache
     (a kernel build, the camera constants, the scene tensors) outside the
     capture and leave the caller's state as it was.  A failed capture
-    raises: nothing falls back to the eager step."""
+    raises: nothing falls back to the eager step.  ``end_tag``, when
+    given, is a device stamp (``utils.profiling.stamp``) captured as the
+    body's last operation, after the state copy."""
 
     WARMUP = 2
 
     def __init__(self, step_fn, device, state: EnvState, action,
-                 what: str = "the step", pool=None):
+                 what: str = "the step", pool=None, end_tag=None):
         self.device = device
+        self.what = what
         self.state = _clone_state(state)
         self.action = action.clone()
 
@@ -248,6 +253,8 @@ class StepGraph:
         def body():
             out = step_fn(self.state, self.action)
             _copy_state(self.state, out[0])
+            if end_tag is not None:
+                stamp(end_tag, device)
             return out
 
         with torch.no_grad():
@@ -257,14 +264,16 @@ class StepGraph:
 
     def load(self, state: EnvState):
         """Make ``state`` the state the next replay steps from."""
-        with torch.cuda.device(self.device):
+        with span("gsw.step.load"), torch.cuda.device(self.device):
             _copy_state(self.state, state)
 
     def replay(self, action):
         """One step of the loaded state with ``action`` (B, A)."""
         with torch.cuda.device(self.device):
             self.action.copy_(action)
-            self.graph.replay()
+            with span("gsw.step.launch"):
+                self.graph.replay()
+        count("graph.replays", self.what)
 
     def state_clone(self) -> EnvState:
         """The state after the last replay, in tensors of its own."""
@@ -276,7 +285,7 @@ class StepGraph:
         truncated, info), each in tensors of its own, as ``step_fn``."""
         self.load(state)
         self.replay(action)
-        with torch.cuda.device(self.device):
+        with span("gsw.step.outputs"), torch.cuda.device(self.device):
             return (_clone_state(self.state), *clone_tree(
                 (self.obs, self.reward, self.terminated, self.truncated,
                  self.info)))
@@ -729,11 +738,18 @@ class GsBaseEnv:
         return self._graph_pool
 
     def _as_action(self, action) -> torch.Tensor:
-        action = torch.as_tensor(action, dtype=torch.float32,
-                                 device=self.device)
-        if action.ndim == 1:
-            action = action.expand(self.num_envs, -1)
-        return action
+        """``action`` as a float32 (B, A) tensor on the env's device; one
+        from host memory is copied there, which on a card waits for the
+        stream (``host.sync/action_copy``)."""
+        with span("gsw.step.action"):
+            if not (isinstance(action, torch.Tensor)
+                    and action.device == self.device):
+                host_waits("action_copy", self.device)
+            action = torch.as_tensor(action, dtype=torch.float32,
+                                     device=self.device)
+            if action.ndim == 1:
+                action = action.expand(self.num_envs, -1)
+            return action
 
     def _graphed(self) -> bool:
         """Whether ``step`` replays a CUDA graph (a CUDA env built with

@@ -30,7 +30,6 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gsworld_tpu_torch.core.maths import (
     quat_multiply,
@@ -519,74 +518,73 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
     if nC == 0:
         return (qvel_free, a_lin_free, a_ang_free,
                 qvel_free.new_zeros((B, 0, 6)))
-    with record_function("gsw.physics.rows"):
-        if lam0 is None:
-            lam0 = qvel_free.new_zeros((B, nC, 6))
-        # warm-start gating: only replay impulses whose contact point is
-        # still (nearly) where it was when the impulse was computed
-        matched = (torch.sum((contacts.pos - lam0[..., 3:6]) ** 2, dim=-1)
-                   < 0.005 ** 2)
-        lam0 = torch.where(matched[..., None], lam0[..., :3], 0.0)
+    if lam0 is None:
+        lam0 = qvel_free.new_zeros((B, nC, 6))
+    # warm-start gating: only replay impulses whose contact point is
+    # still (nearly) where it was when the impulse was computed
+    matched = (torch.sum((contacts.pos - lam0[..., 3:6]) ** 2, dim=-1)
+               < 0.005 ** 2)
+    lam0 = torch.where(matched[..., None], lam0[..., :3], 0.0)
 
-        n = contacts.normal
-        t1, t2 = _tangent_basis(n, st.ez, st.ex)
-        dirs = torch.stack([n, t1, t2], dim=2)                # (B, C, 3, 3)
+    n = contacts.normal
+    t1, t2 = _tangent_basis(n, st.ez, st.ex)
+    dirs = torch.stack([n, t1, t2], dim=2)                # (B, C, 3, 3)
 
-        # ---- robot jacobian rows: J[c, d, dof] ----
-        Sw, Sv = kin.S[..., :3], kin.S[..., 3:]               # (B, dof, 3)
-        # velocity of dof d at point x: Sv_d + Sw_d x x
-        vel_at = Sv[:, None] + cross(Sw[:, None],
-                                     contacts.pos[:, :, None])  # (B,C,dof,3)
-        J_rob = (torch.einsum("ncij,ncdj->ncid", dirs, vel_at)
-                 * st.jac_mask[:, None, :])                   # (B, C, 3, dof)
-        MinvJt = torch.einsum("nde,ncie->ncid", Minv_eff, J_rob)
-        D_rob = torch.sum(J_rob * MinvJt, dim=-1)             # (B, C, 3)
+    # ---- robot jacobian rows: J[c, d, dof] ----
+    Sw, Sv = kin.S[..., :3], kin.S[..., 3:]               # (B, dof, 3)
+    # velocity of dof d at point x: Sv_d + Sw_d x x
+    vel_at = Sv[:, None] + cross(Sw[:, None],
+                                 contacts.pos[:, :, None])  # (B,C,dof,3)
+    J_rob = (torch.einsum("ncij,ncdj->ncid", dirs, vel_at)
+             * st.jac_mask[:, None, :])                   # (B, C, 3, dof)
+    MinvJt = torch.einsum("nde,ncie->ncid", Minv_eff, J_rob)
+    D_rob = torch.sum(J_rob * MinvJt, dim=-1)             # (B, C, 3)
 
-        # ---- actor terms ----
-        inv_mass = st.inv_mass
-        Rw = quat_to_matrix(state.a_quat)                     # (B, A, 3, 3)
-        # world-frame inverse inertia per actor
-        Iw_inv = Rw @ st.inertia_inv @ Rw.transpose(-1, -2)
-        r_a = (contacts.pos - state.a_pos[:, st.idx_a]) * st.is_act_a
-        r_b = (contacts.pos - state.a_pos[:, st.idx_b]) * st.is_act_b
-        rxd_a = cross(r_a[:, :, None], dirs)                  # (B, C, 3, 3)
-        rxd_b = cross(r_b[:, :, None], dirs)
-        im_a, im_b = st.im_a, st.im_b                         # (C,)
-        Ii_a = Iw_inv[:, st.idx_a] * st.is_act_a[..., None]
-        Ii_b = Iw_inv[:, st.idx_b] * st.is_act_b[..., None]
-        D_act = ((im_a + im_b)[:, None]
-                 + torch.einsum("ncij,ncjk,ncik->nci", rxd_a, Ii_a, rxd_a)
-                 + torch.einsum("ncij,ncjk,ncik->nci", rxd_b, Ii_b, rxd_b))
-        Dg = (D_rob + D_act).clamp_min(1e-9)                  # (B, C, 3)
+    # ---- actor terms ----
+    inv_mass = st.inv_mass
+    Rw = quat_to_matrix(state.a_quat)                     # (B, A, 3, 3)
+    # world-frame inverse inertia per actor
+    Iw_inv = Rw @ st.inertia_inv @ Rw.transpose(-1, -2)
+    r_a = (contacts.pos - state.a_pos[:, st.idx_a]) * st.is_act_a
+    r_b = (contacts.pos - state.a_pos[:, st.idx_b]) * st.is_act_b
+    rxd_a = cross(r_a[:, :, None], dirs)                  # (B, C, 3, 3)
+    rxd_b = cross(r_b[:, :, None], dirs)
+    im_a, im_b = st.im_a, st.im_b                         # (C,)
+    Ii_a = Iw_inv[:, st.idx_a] * st.is_act_a[..., None]
+    Ii_b = Iw_inv[:, st.idx_b] * st.is_act_b[..., None]
+    D_act = ((im_a + im_b)[:, None]
+             + torch.einsum("ncij,ncjk,ncik->nci", rxd_a, Ii_a, rxd_a)
+             + torch.einsum("ncij,ncjk,ncik->nci", rxd_b, Ii_b, rxd_b))
+    Dg = (D_rob + D_act).clamp_min(1e-9)                  # (B, C, 3)
 
-        # Baumgarte bias: desired separating normal velocity.  Speculative
-        # rows (pen < 0: within contact_margin but not yet touching) get a
-        # negative bias pen/h: the pair may approach at most the remaining
-        # distance this substep.
-        b = torch.where(
-            contacts.pen >= 0.0,
-            (sp.baumgarte / h * (contacts.pen - sp.slop).clamp_min(0.0))
-            .clamp_max(sp.max_pen_vel),
-            contacts.pen / h)
+    # Baumgarte bias: desired separating normal velocity.  Speculative
+    # rows (pen < 0: within contact_margin but not yet touching) get a
+    # negative bias pen/h: the pair may approach at most the remaining
+    # distance this substep.
+    b = torch.where(
+        contacts.pen >= 0.0,
+        (sp.baumgarte / h * (contacts.pen - sp.slop).clamp_min(0.0))
+        .clamp_max(sp.max_pen_vel),
+        contacts.pen / h)
 
-        act_mask = contacts.active
-        # --- mass splitting: Jacobi diverges when several active rows
-        # push the same body; divide each row's step by the number of
-        # active rows sharing its most-contended body.  Robot rows are
-        # counted per link.  The actor counts keep their trash column: a
-        # row whose other body is no actor reads the number of active
-        # rows with a non-actor side, as the JAX package's scatter does.
-        af = act_mask.to(lam0.dtype)
-        cnt_act = af @ st.oh_a1 + af @ st.oh_b1               # (B, A + 1)
-        cnt_link = af @ st.ohl_a + af @ st.ohl_b              # (B, L + 1)
-        cnt_rob_row = torch.maximum(cnt_link[:, st.link_a],
-                                    cnt_link[:, st.link_b])
-        n_shared = torch.maximum(
-            torch.maximum(cnt_act[:, st.seg_a], cnt_act[:, st.seg_b]),
-            cnt_rob_row)
-        split = 1.0 / n_shared.clamp_min(1.0)                 # (B, C)
-        # warm start: keep impulses only on rows still active this substep
-        lam0 = torch.where(act_mask[..., None], lam0, 0.0)
+    act_mask = contacts.active
+    # --- mass splitting: Jacobi diverges when several active rows
+    # push the same body; divide each row's step by the number of
+    # active rows sharing its most-contended body.  Robot rows are
+    # counted per link.  The actor counts keep their trash column: a
+    # row whose other body is no actor reads the number of active
+    # rows with a non-actor side, as the JAX package's scatter does.
+    af = act_mask.to(lam0.dtype)
+    cnt_act = af @ st.oh_a1 + af @ st.oh_b1               # (B, A + 1)
+    cnt_link = af @ st.ohl_a + af @ st.ohl_b              # (B, L + 1)
+    cnt_rob_row = torch.maximum(cnt_link[:, st.link_a],
+                                cnt_link[:, st.link_b])
+    n_shared = torch.maximum(
+        torch.maximum(cnt_act[:, st.seg_a], cnt_act[:, st.seg_b]),
+        cnt_rob_row)
+    split = 1.0 / n_shared.clamp_min(1.0)                 # (B, C)
+    # warm start: keep impulses only on rows still active this substep
+    lam0 = torch.where(act_mask[..., None], lam0, 0.0)
 
     def body_vel(qvel, a_lin, a_ang):
         # relative velocity along each dir: J_rob qvel + actor terms
@@ -620,23 +618,22 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
     # explicitly; here one sweep is one batched matrix-vector product with
     # the dense W, whose normal-normal block is the Newton stage's matrix
     # and whose tangent block the friction stages'.
-    with record_function("gsw.physics.newton"):
-        n3 = 3 * nC
-        d3 = dirs.reshape(B, n3, 3)
-        J3 = J_rob.reshape(B, n3, -1)
-        W = torch.einsum("ncd,nde,nfe->ncf", J3, Minv_eff, J3)
-        if A:
-            oh_a3 = st.oh_a.repeat_interleave(3, dim=0)       # (3C, A)
-            oh_b3 = st.oh_b.repeat_interleave(3, dim=0)
-            G_lin = (oh_a3 - oh_b3)[None, :, :, None] * d3[:, :, None, :]
-            G_ang = (oh_a3[None, :, :, None]
-                     * rxd_a.reshape(B, n3, 1, 3)
-                     - oh_b3[None, :, :, None]
-                     * rxd_b.reshape(B, n3, 1, 3))            # (B, 3C, A, 3)
-            W = W + torch.einsum("ncak,a,ndak->ncd", G_lin, inv_mass, G_lin)
-            W = W + torch.einsum("ncak,nakl,ndal->ncd", G_ang, Iw_inv, G_ang)
-        v_free = body_vel(qvel_free, a_lin_free, a_ang_free)  # (B, C, 3)
-        W5 = W.reshape(B, nC, 3, nC, 3)
+    n3 = 3 * nC
+    d3 = dirs.reshape(B, n3, 3)
+    J3 = J_rob.reshape(B, n3, -1)
+    W = torch.einsum("ncd,nde,nfe->ncf", J3, Minv_eff, J3)
+    if A:
+        oh_a3 = st.oh_a.repeat_interleave(3, dim=0)       # (3C, A)
+        oh_b3 = st.oh_b.repeat_interleave(3, dim=0)
+        G_lin = (oh_a3 - oh_b3)[None, :, :, None] * d3[:, :, None, :]
+        G_ang = (oh_a3[None, :, :, None]
+                 * rxd_a.reshape(B, n3, 1, 3)
+                 - oh_b3[None, :, :, None]
+                 * rxd_b.reshape(B, n3, 1, 3))            # (B, 3C, A, 3)
+        W = W + torch.einsum("ncak,a,ndak->ncd", G_lin, inv_mass, G_lin)
+        W = W + torch.einsum("ncak,nakl,ndal->ncd", G_ang, Iw_inv, G_ang)
+    v_free = body_vel(qvel_free, a_lin_free, a_ang_free)  # (B, C, 3)
+    W5 = W.reshape(B, nC, 3, nC, 3)
 
     def vel_after(lam):
         """Row velocities (B, C, 3) after the impulses ``lam``."""
@@ -675,12 +672,11 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
     # Tikhonov regularization keeps the masked solve well-posed (rows on
     # a sandwiched body are redundant); its compliance bias is removed by
     # iterative refinement against the unregularized matrix.
-    with record_function("gsw.physics.newton"):
-        An_raw = W5[:, :, 0, :, 0]
-        An = tikhonov(An_raw, st.eye_c)
-        if sp.friction_stage in ("qp", "pgs"):
-            At_raw = W5[:, :, 1:, :, 1:].reshape(B, 2 * nC, 2 * nC)
-            At = tikhonov(At_raw, st.eye_2c)
+    An_raw = W5[:, :, 0, :, 0]
+    An = tikhonov(An_raw, st.eye_c)
+    if sp.friction_stage in ("qp", "pgs"):
+        At_raw = W5[:, :, 1:, :, 1:].reshape(B, 2 * nC, 2 * nC)
+        At = tikhonov(At_raw, st.eye_2c)
 
     def normal_newton(lam_f, x_init):
         """Semismooth (min-map) Newton on min(x, w) = 0: solve w = 0 on
@@ -745,42 +741,40 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
             y = torch.where(okr, y, 0.0)
         return y.reshape(B, nC, 2)
 
-    with record_function("gsw.physics.newton"):
-        x = normal_newton(lam0[..., 1:], lam0[..., 0])
-        if sp.friction_stage == "qp":
-            y = friction_qp(x, lam0[..., 1:])
-            x = normal_newton(y, x)
-        elif sp.friction_stage == "pgs":
-            y = friction_pgs(x, lam0[..., 1:])
-            x = normal_newton(y, x)
-        elif sp.friction_stage == "off":
-            y = lam0[..., 1:]       # friction is left to the polish
-        else:
-            raise ValueError(f"friction_stage {sp.friction_stage!r}")
-        lam_ps = torch.cat([x[..., None], y], dim=-1)
+    x = normal_newton(lam0[..., 1:], lam0[..., 0])
+    if sp.friction_stage == "qp":
+        y = friction_qp(x, lam0[..., 1:])
+        x = normal_newton(y, x)
+    elif sp.friction_stage == "pgs":
+        y = friction_pgs(x, lam0[..., 1:])
+        x = normal_newton(y, x)
+    elif sp.friction_stage == "off":
+        y = lam0[..., 1:]       # friction is left to the polish
+    else:
+        raise ValueError(f"friction_stage {sp.friction_stage!r}")
+    lam_ps = torch.cat([x[..., None], y], dim=-1)
 
-        # ---- kick safety valve ---------------------------------------- #
-        # The exact presolve can return huge near-cancelling impulse sets
-        # on ill-conditioned active sets; their residual arrives as an
-        # m/s-scale kick.  Any actor whose presolve delta exceeds the free
-        # velocity plus the bias budget falls back to the gated warm start
-        # and lets the monotone polish carry the substep.
-        if A:
-            _, dlin_ps, dang_ps = deltas_from_lam(lam_ps)
-            norm = lambda v: torch.linalg.norm(v, dim=-1)     # noqa: E731
-            bad_a = ((norm(dlin_ps) > norm(a_lin_free) + sp.max_kick_lin)
-                     | (norm(dang_ps) > norm(a_ang_free) + sp.max_kick_ang))
-            bad_pad = torch.cat([bad_a, torch.zeros_like(bad_a[:, :1])],
-                                dim=1)
-            row_bad = bad_pad[:, st.seg_a] | bad_pad[:, st.seg_b]
-            lam_ps = torch.where(row_bad[..., None], lam0, lam_ps)
+    # ---- kick safety valve ---------------------------------------- #
+    # The exact presolve can return huge near-cancelling impulse sets
+    # on ill-conditioned active sets; their residual arrives as an
+    # m/s-scale kick.  Any actor whose presolve delta exceeds the free
+    # velocity plus the bias budget falls back to the gated warm start
+    # and lets the monotone polish carry the substep.
+    if A:
+        _, dlin_ps, dang_ps = deltas_from_lam(lam_ps)
+        norm = lambda v: torch.linalg.norm(v, dim=-1)     # noqa: E731
+        bad_a = ((norm(dlin_ps) > norm(a_lin_free) + sp.max_kick_lin)
+                 | (norm(dang_ps) > norm(a_ang_free) + sp.max_kick_ang))
+        bad_pad = torch.cat([bad_a, torch.zeros_like(bad_a[:, :1])],
+                            dim=1)
+        row_bad = bad_pad[:, st.seg_a] | bad_pad[:, st.seg_b]
+        lam_ps = torch.where(row_bad[..., None], lam0, lam_ps)
 
-    with record_function("gsw.physics.jacobi"):
-        lam = lam_ps
-        for _ in range(sp.iterations):
-            lam = iteration(lam)
-        dqvel, dlin, dang = deltas_from_lam(lam)
-        lam_state = torch.cat([lam, contacts.pos], dim=-1)
+    lam = lam_ps
+    for _ in range(sp.iterations):
+        lam = iteration(lam)
+    dqvel, dlin, dang = deltas_from_lam(lam)
+    lam_state = torch.cat([lam, contacts.pos], dim=-1)
     return (qvel_free + dqvel, a_lin_free + dlin, a_ang_free + dang,
             lam_state)
 
@@ -793,48 +787,44 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
 def physics_substep(scene: PhysicsScene, state: WorldState, q_target):
     model, st = scene.model, scene.tensors
     h = scene.h
-    with record_function("gsw.physics.kin"):
-        kin = D.compute_kinematics(model, state.qpos, state.root_pos,
-                                   state.root_quat)
-    with record_function("gsw.physics.dyn"):
-        M = D.mass_matrix(model, kin)
-        bias = D.bias_forces(model, kin, state.qvel)
-        # passive-force balancing: the compensation torque (= bias at the
-        # current state) enters as unclipped external force, exactly
-        # cancelling gravity + coriolis in the free solve
-        comp = bias if scene.compensate_passive else None
-        qvel_free, Minv_eff = D.implicit_pd_velocity(
-            model, M, bias, state.qpos, state.qvel, q_target, st.kp, st.kd,
-            st.force_limit, h, tau_external=comp)
-        a_lin_free = state.a_lin + st.h_gravity
-        a_ang_free = state.a_ang
+    kin = D.compute_kinematics(model, state.qpos, state.root_pos,
+                               state.root_quat)
+    M = D.mass_matrix(model, kin)
+    bias = D.bias_forces(model, kin, state.qvel)
+    # passive-force balancing: the compensation torque (= bias at the
+    # current state) enters as unclipped external force, exactly
+    # cancelling gravity + coriolis in the free solve
+    comp = bias if scene.compensate_passive else None
+    qvel_free, Minv_eff = D.implicit_pd_velocity(
+        model, M, bias, state.qpos, state.qvel, q_target, st.kp, st.kd,
+        st.force_limit, h, tau_external=comp)
+    a_lin_free = state.a_lin + st.h_gravity
+    a_ang_free = state.a_ang
 
-    with record_function("gsw.physics.contacts"):
-        contacts, _ = _generate_contacts(scene, kin, state)
+    contacts, _ = _generate_contacts(scene, kin, state)
     qvel, a_lin, a_ang, lam = _solve_contacts(
         scene, kin, contacts, Minv_eff, qvel_free, a_lin_free, a_ang_free,
         state, lam0=state.contact_lam)
 
-    with record_function("gsw.physics.integrate"):
-        # per-(link, actor) pair contact force (world) on the link
-        B = state.qpos.shape[0]
-        if st.la_sel.shape[0] and contacts.pen.shape[1]:
-            n = contacts.normal
-            t1, t2 = _tangent_basis(n, st.ez, st.ex)
-            Pw = (n * lam[..., 0:1] + t1 * lam[..., 1:2]
-                  + t2 * lam[..., 2:3]) / h
-            la_forces = torch.einsum("pc,ncj->npj", st.la_sel, Pw)
-        else:
-            la_forces = state.qpos.new_zeros(
-                (B, max(st.la_sel.shape[0], 1), 3))
+    # per-(link, actor) pair contact force (world) on the link
+    B = state.qpos.shape[0]
+    if st.la_sel.shape[0] and contacts.pen.shape[1]:
+        n = contacts.normal
+        t1, t2 = _tangent_basis(n, st.ez, st.ex)
+        Pw = (n * lam[..., 0:1] + t1 * lam[..., 1:2]
+              + t2 * lam[..., 2:3]) / h
+        la_forces = torch.einsum("pc,ncj->npj", st.la_sel, Pw)
+    else:
+        la_forces = state.qpos.new_zeros(
+            (B, max(st.la_sel.shape[0], 1), 3))
 
-        # limits + integration (articulation)
-        qpos, qvel = D.integrate_joints(model, state.qpos, qvel, h)
-        # actors
-        a_pos = state.a_pos + h * a_lin
-        wq = torch.cat([torch.zeros_like(a_ang[..., :1]), a_ang], dim=-1)
-        a_quat = quat_normalize(state.a_quat + 0.5 * h *
-                                quat_multiply(wq, state.a_quat))
+    # limits + integration (articulation)
+    qpos, qvel = D.integrate_joints(model, state.qpos, qvel, h)
+    # actors
+    a_pos = state.a_pos + h * a_lin
+    wq = torch.cat([torch.zeros_like(a_ang[..., :1]), a_ang], dim=-1)
+    a_quat = quat_normalize(state.a_quat + 0.5 * h *
+                            quat_multiply(wq, state.a_quat))
     return WorldState(qpos=qpos, qvel=qvel, root_pos=state.root_pos,
                       root_quat=state.root_quat, a_pos=a_pos, a_quat=a_quat,
                       a_lin=a_lin, a_ang=a_ang, la_forces=la_forces,

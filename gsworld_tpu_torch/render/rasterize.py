@@ -4,9 +4,7 @@ its differentiable branch ``_composite_pallas_diff``).
 
 Leading axes of the Gaussians and cameras broadcast and are flattened
 into one frame axis, so every frame (envs x cameras) goes through one
-emit launch, one sort and one compositor launch.  The stages are marked
-with ``record_function`` ranges (``gsw.*``) that torch.profiler reads; they
-cost nothing when no profiler runs.
+emit launch, one sort and one compositor launch.
 
 Without semantics the render is differentiable with respect to the
 projected floats through :class:`CompositeFunction` (forward: the
@@ -21,7 +19,6 @@ differentiable.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from gsworld_tpu_torch.gs.transform import PosedGaussians
 from gsworld_tpu_torch.render.binning import EntryBins, bin_entries_fused
@@ -59,12 +56,11 @@ class CompositeFunction(torch.autograd.Function):
         (mean2d, conic, opacity, color, starts, gaussian, ends, perm, img,
          T_img, records) = ctx.saved_tensors
         cfg = ctx.cfg
-        with record_function("gsw.composite_bwd"):
-            rows = composite_bwd(
-                starts, gaussian, mean2d, conic, opacity, color, img, T_img,
-                img_ct.contiguous(), T_ct.contiguous(), width=cfg.width,
-                height=cfg.height, tile=cfg.tile, records=records)
-            acc = sum_entry_rows(rows, perm, ends)
+        rows = composite_bwd(
+            starts, gaussian, mean2d, conic, opacity, color, img, T_img,
+            img_ct.contiguous(), T_ct.contiguous(), width=cfg.width,
+            height=cfg.height, tile=cfg.tile, records=records)
+        acc = sum_entry_rows(rows, perm, ends)
         return (acc[..., 0:2], acc[..., 2:5], acc[..., 8], acc[..., 5:8],
                 None, None)
 
@@ -92,21 +88,19 @@ def bin_detached(flat: Projected, cfg: RasterConfig) -> EntryBins:
 def render_projected(flat: Projected, cfg: RasterConfig, semantics=None):
     """Bin and composite frame-batched projections (F, N, ...) ->
     (img (F, H, W, 3), T (F, H, W), seg (F, H, W) or None, bins)."""
-    with record_function("gsw.bin"):
-        bins = bin_detached(flat, cfg)
-    with record_function("gsw.composite"):
-        if semantics is None:
-            img, T_img = CompositeFunction.apply(
-                flat.mean2d, flat.conic, flat.opacity, flat.color, bins,
-                cfg)
-            return img, T_img, None, bins
-        with torch.no_grad():
-            img, T_img, seg, _ = composite_tiles(
-                bins.starts, bins.gaussian, flat.mean2d, flat.conic,
-                flat.opacity, flat.color,
-                semantics.to(torch.int32).contiguous(),
-                width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
-        return img, T_img, seg, bins
+    bins = bin_detached(flat, cfg)
+    if semantics is None:
+        img, T_img = CompositeFunction.apply(
+            flat.mean2d, flat.conic, flat.opacity, flat.color, bins,
+            cfg)
+        return img, T_img, None, bins
+    with torch.no_grad():
+        img, T_img, seg, _ = composite_tiles(
+            bins.starts, bins.gaussian, flat.mean2d, flat.conic,
+            flat.opacity, flat.color,
+            semantics.to(torch.int32).contiguous(),
+            width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
+    return img, T_img, seg, bins
 
 
 def render(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0, shN,
@@ -120,8 +114,7 @@ def render(g: PosedGaussians, cam: GSCamera, cfg: RasterConfig, sh0, shN,
     (B, 1, N, 3) for B envs x C cameras) multiplies the projected colours
     before binning: the per-object colour randomization.  The compositor
     reads the tinted colours as it reads any."""
-    with record_function("gsw.project"):
-        flat, lead = project_frames(g, cam, cfg, sh0, shN, color_tint)
+    flat, lead = project_frames(g, cam, cfg, sh0, shN, color_tint)
     img, T_img, seg, bins = render_projected(flat, cfg, semantics)
     hw = (cfg.height, cfg.width)
     return dict(rgb=img.reshape(lead + hw + (3,)), T=T_img.reshape(lead + hw),

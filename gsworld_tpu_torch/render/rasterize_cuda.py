@@ -10,6 +10,8 @@ plain PyTorch versions, the build, and launch counts.
   * ``sum_entry_rows``  <- the scatter-add after it in composite_bwd_pallas
                            (csrc/entry_rows.cu; an XLA scatter in JAX, not
                            a Pallas kernel)
+  * ``gsw_stamp``       <- none: the device stamps of utils/profiling.py
+                           (csrc/stamp.cu)
 
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (the CPU tests), a CUDA tensor launches the kernel or raises.
@@ -37,10 +39,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gsworld_tpu_torch.utils.profiling import counters
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("emit.cu", "composite.cu", "composite_bwd.cu", "entry_rows.cu")
+SOURCES = ("emit.cu", "composite.cu", "composite_bwd.cu", "entry_rows.cu",
+           "stamp.cu")
 # --fmad=false: every f32 product rounds on its own, as in the plain
 # PyTorch versions, so kernel and plain version agree to the last bits
 # (the alpha cull's threshold compare is the sensitive one)
@@ -54,10 +59,10 @@ T_EPS = 1e-4
 COLOR_MAX = 4.0   # colours clamp to [0, COLOR_MAX] (the JAX record range)
 PLAIN_CHUNK = 64  # entries per step of the plain compositor
 
-# launches of each kernel since the last reset; the plain versions do not
-# count
-launch_counts = {"emit_entries": 0, "composite_tiles": 0, "composite_bwd": 0,
-                 "sum_entry_rows": 0}
+# launches of each kernel since the last reset (the counter registry's
+# ``kernel_launches`` group); the plain versions do not count
+launch_counts = counters.group("kernel_launches", (
+    "emit_entries", "composite_tiles", "composite_bwd", "sum_entry_rows"))
 
 
 def reset_launch_counts():
@@ -144,6 +149,10 @@ def build_kernels() -> ctypes.CDLL:
     lib.gsw_composite_bwd.restype = I
     lib.gsw_sum_entry_rows.argtypes = [P] * 5 + [I] * 3 + [P]
     lib.gsw_sum_entry_rows.restype = I
+    lib.gsw_stamp.argtypes = [P, I, I, P]
+    lib.gsw_stamp.restype = I
+    lib.gsw_stamp_on_flag.argtypes = [P, P, I, I, ctypes.c_longlong, P]
+    lib.gsw_stamp_on_flag.restype = I
     _Library.lib = lib
     return lib
 

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from gsworld_tpu_torch.gs.model import GaussianScene
+from gsworld_tpu_torch.utils.profiling import host_waits
 
 TRAINABLE = ("means", "sh0", "shN", "log_scales", "quats", "logit_opacities")
 B1, B2, EPS = 0.9, 0.999, 1e-15
@@ -116,12 +117,15 @@ def write_step_scalars(state: AdamState,
                        lrs: Dict[str, Callable[[int], float]]):
     """Write the device scalars of step ``state.count``: the bias
     corrections 1 - b^(k + 1) and each field's ``lrs[f](k)``.  On the card
-    the copy is queued from pinned memory, so it waits for nothing."""
+    the copy is queued from pinned memory, so it waits for nothing; the
+    pinned buffer is allocated anew each step, which waits for the card
+    (``host.sync/pinned_alloc``)."""
     k = state.count
     vals = torch.tensor([1.0 - B1 ** (k + 1), 1.0 - B2 ** (k + 1)]
                         + [lrs[f](k) for f in TRAINABLE],
                         dtype=torch.float32)
     if state.scalars.is_cuda:
+        host_waits("pinned_alloc", state.scalars.device)
         vals = vals.pin_memory()
     state.scalars.copy_(vals, non_blocking=True)
 

@@ -23,7 +23,6 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from gsworld_tpu_torch.gs.model import SCENE_FIELDS, GaussianScene
 from gsworld_tpu_torch.gs.transform import PosedGaussians
@@ -49,6 +48,7 @@ from gsworld_tpu_torch.train3dgs.optim import (
     zero_rows,
 )
 from gsworld_tpu_torch.utils.cuda_graph import capture, device_guard
+from gsworld_tpu_torch.utils.profiling import count, host_waits, span, stamp
 
 
 class TrainState(NamedTuple):
@@ -66,9 +66,8 @@ def render_trainable(scene: GaussianScene, d2d, cam: GSCamera,
     posed = PosedGaussians(means=scene.means, log_scales=scene.log_scales,
                            quats=scene.quats,
                            logit_opacities=scene.logit_opacities)
-    with record_function("gsw.project"):
-        flat, _ = project_frames(posed, cam, cfg, scene.sh0, scene.shN)
-        flat = flat._replace(mean2d=flat.mean2d + d2d)
+    flat, _ = project_frames(posed, cam, cfg, scene.sh0, scene.shN)
+    flat = flat._replace(mean2d=flat.mean2d + d2d)
     img, _, _, _ = render_projected(flat, cfg)
     return img[0], flat.radius[0]
 
@@ -78,7 +77,9 @@ def _make_update(cfg: RasterConfig, params: OptimizationParams):
     the forward, the backward, Adam on the state's scene fields and
     moments in place (with the scalars ``write_step_scalars`` wrote) and
     the densify statistics.  It reads nothing from the host, so it
-    captures into a CUDA graph."""
+    captures into a CUDA graph.  On a card it stamps the device's clock
+    (``utils.profiling.stamp``) at its begin, after the loss, before Adam
+    and at its end."""
     # the Inria backward reports dL/dmean2D in NDC units (pixel grad x
     # 0.5 W, 0.5 H), to which densify_grad_threshold is calibrated; the
     # factors' tensor is made once per device, at the first (uncaptured)
@@ -87,28 +88,30 @@ def _make_update(cfg: RasterConfig, params: OptimizationParams):
 
     def update(state: TrainState, cam: GSCamera, target):
         scene = state.scene
+        dev = scene.means.device
+        stamp("train.begin", dev)
         leaves = {f: getattr(scene, f).detach().requires_grad_(True)
                   for f in TRAINABLE}
         d2d = torch.zeros((scene.num_gaussians, 2), dtype=scene.means.dtype,
                           device=scene.means.device, requires_grad=True)
         img, radii = render_trainable(dataclasses.replace(scene, **leaves),
                                       d2d, cam, cfg)
-        with record_function("gsw.loss"):
-            loss = gs_loss(img, target, params.lambda_dssim)
+        loss = gs_loss(img, target, params.lambda_dssim)
+        stamp("train.forward|backward", dev)
         *g_leaves, g_d2d = torch.autograd.grad(loss,
                                                [*leaves.values(), d2d])
         # dead slots stay frozen
         alive = state.ds.alive
         grads = {f: g * alive.reshape((-1,) + (1,) * (g.dim() - 1))
                  for f, g in zip(TRAINABLE, g_leaves)}
-        with record_function("gsw.adam"):
-            adam_update(scene, grads, state.opt_state)
-        dev = g_d2d.device
+        stamp("train.backward|update", dev)
+        adam_update(scene, grads, state.opt_state)
         if dev not in ndc_scale:
             ndc_scale[dev] = torch.tensor(
                 [0.5 * cfg.width, 0.5 * cfg.height], dtype=g_d2d.dtype,
                 device=dev)
         ds = accumulate_stats(state.ds, g_d2d * ndc_scale[dev], radii)
+        stamp("train.end", dev)
         return ds, loss.detach(), img.detach()
 
     return update
@@ -179,7 +182,9 @@ class TrainStepGraph:
             for dst, src in zip(self.cam, cam):
                 dst.copy_(src)
             self.target.copy_(target)
-            self.graph.replay()
+            with span("gsw.train.launch"):
+                self.graph.replay()
+            count("graph.replays", "the train step")
             return self.state.ds, self.loss.clone(), self.img.clone()
 
 
@@ -232,6 +237,7 @@ class DensifyGraph:
                 self.noise.shape, generator=generator,
                 dtype=self.noise.dtype, device=self.device))
             self.graph.replay()
+        count("graph.replays", "the densify pass")
 
 
 def make_train_step(cfg: RasterConfig, params: OptimizationParams,
@@ -314,24 +320,27 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
 
     losses = []
     for it in range(1, iters + 1):
-        ci = (it - 1) % len(cameras)
-        state, loss, _ = train_step(state, cameras[ci], images[ci])
-        losses.append(float(loss))
-        densified = (params.densify_from_iter <= it
-                     <= params.densify_until_iter
-                     and it % params.densification_interval == 0)
-        if densified and graph and dev.type == "cuda":
-            if densify_graph is None:
-                densify_graph = DensifyGraph(state, **densify_kw)
-            densify_graph(state, gen)
-        elif densified:
-            scene2, ds2, changed = densify_and_prune(
-                state.scene, state.ds, gen, **densify_kw)
-            # reset the Adam moments of the rows densify rewrote only
-            zero_rows(state.opt_state, changed)
-            _write_state(state, scene2, ds2)
-        if it % params.opacity_reset_interval == 0:
-            _write_state(state, reset_opacity(state.scene))
+        with span("gsw.train.iter"):
+            ci = (it - 1) % len(cameras)
+            state, loss, _ = train_step(state, cameras[ci], images[ci])
+            with span("gsw.train.loss_read"):
+                host_waits("loss_read", loss.device)
+                losses.append(float(loss))
+            densified = (params.densify_from_iter <= it
+                         <= params.densify_until_iter
+                         and it % params.densification_interval == 0)
+            if densified and graph and dev.type == "cuda":
+                if densify_graph is None:
+                    densify_graph = DensifyGraph(state, **densify_kw)
+                densify_graph(state, gen)
+            elif densified:
+                scene2, ds2, changed = densify_and_prune(
+                    state.scene, state.ds, gen, **densify_kw)
+                # reset the Adam moments of the rows densify rewrote only
+                zero_rows(state.opt_state, changed)
+                _write_state(state, scene2, ds2)
+            if it % params.opacity_reset_interval == 0:
+                _write_state(state, reset_opacity(state.scene))
         if log_every and it % log_every == 0:
             print(f"iter {it}: loss={losses[-1]:.4f} "
                   f"alive={int(state.ds.alive.sum())}", flush=True)

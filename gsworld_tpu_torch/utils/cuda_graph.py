@@ -11,7 +11,10 @@ capture only to an allocation on the stream that freed it, so graphs
 that share a pool capture on one stream.  The warm-up runs the same work
 outside the capture (building the kernels and filling every lazy cache)
 on the caller's clones.  A capture that fails raises: no caller falls
-back to eager work on the card.
+back to eager work on the card.  The device's stamp ring
+(``utils.profiling.stamp_ring``) is made before the capture, so a
+captured stamp writes into it; captures and replays are counted
+(``graph.captures/<what>``, ``graph.replays/<what>``).
 
 ``FnGraph(fn, device, inputs, what)`` is the load -> replay -> clone
 plumbing around one capture of a pure function ``fn(*inputs)``.
@@ -23,6 +26,8 @@ import contextlib
 import dataclasses
 
 import torch
+
+from gsworld_tpu_torch.utils import profiling
 
 
 _capture_streams = {}
@@ -38,6 +43,7 @@ def capture(body, warm, device, what: str, pool=None):
         if index not in _capture_streams:
             _capture_streams[index] = torch.cuda.Stream()
         side = _capture_streams[index]
+        profiling.stamp_ring(device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             warm()
@@ -51,6 +57,7 @@ def capture(body, warm, device, what: str, pool=None):
                 f"{what} did not capture into a CUDA graph: an operation in "
                 f"it synchronizes with the host (the traceback above names "
                 f"it)") from e
+    profiling.count("graph.captures", what)
     return graph, out
 
 
@@ -137,6 +144,7 @@ class FnGraph:
 
     def __init__(self, fn, device, inputs, what: str, pool=None):
         self.device = torch.device(device)
+        self.what = what
         self.inputs = clone_tree(tuple(inputs))
 
         def warm():
@@ -158,6 +166,7 @@ class FnGraph:
         (``outputs``) are overwritten."""
         with device_guard(self.device):
             self.graph.replay()
+        profiling.count("graph.replays", self.what)
 
     def __call__(self, *inputs):
         self.load(*inputs)

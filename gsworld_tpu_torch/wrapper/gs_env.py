@@ -54,7 +54,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gsworld_tpu_torch import constants
 from gsworld_tpu_torch.core.maths import (
@@ -75,6 +74,7 @@ from gsworld_tpu_torch.physics.spec_io import load_surface_points
 from gsworld_tpu_torch.render.camera import RasterConfig, cam_maniskill2gs
 from gsworld_tpu_torch.render.rasterize import render as gs_render
 from gsworld_tpu_torch.utils.cuda_graph import FnGraph
+from gsworld_tpu_torch.utils.profiling import span, stamp
 
 
 class GSWorldRenderer:
@@ -222,18 +222,17 @@ class GSWorldRenderer:
         env = self.env
         cams = env.cameras if cameras is None else cameras
         cfg = self._config_for(cameras)
-        with record_function("gsw.pose"):
-            link_pos, link_quat = forward_kinematics(
-                env.agent.model, poses.qpos, poses.root_pos, poses.root_quat)
-            slots = self.slot_transforms(link_pos, link_quat, poses.a_pos,
-                                         poses.a_quat, poses.a_scale)
-            posed = repose_scene(self.scene, slots)              # (B, N, ...)
-            ext = env.camera_extrinsics_cv(
-                poses, cams, link_pose=(link_pos, link_quat))    # (B, C, 4, 4)
-            K = env.camera_intrinsics(cams, ext.device)          # (C, 3, 3)
-            gs_cams = cam_maniskill2gs(ext, K, cfg.width, cfg.height,
-                                       self.rigid_sim2real,
-                                       self.scale_sim2real)
+        link_pos, link_quat = forward_kinematics(
+            env.agent.model, poses.qpos, poses.root_pos, poses.root_quat)
+        slots = self.slot_transforms(link_pos, link_quat, poses.a_pos,
+                                     poses.a_quat, poses.a_scale)
+        posed = repose_scene(self.scene, slots)              # (B, N, ...)
+        ext = env.camera_extrinsics_cv(
+            poses, cams, link_pose=(link_pos, link_quat))    # (B, C, 4, 4)
+        K = env.camera_intrinsics(cams, ext.device)          # (C, 3, 3)
+        gs_cams = cam_maniskill2gs(ext, K, cfg.width, cfg.height,
+                                   self.rigid_sim2real,
+                                   self.scale_sim2real)
         return type(posed)(*(x[:, None] for x in posed)), gs_cams
 
     @torch.no_grad()
@@ -362,15 +361,19 @@ class GSWorldWrapper:
 
     def _render_fn(self, state, cameras=None) -> dict:
         """The eager GS render of ``state`` (what the graphs capture)."""
-        with record_function("gsw.closed_loop.render"):
-            return self.renderer._render(
-                world_poses(state.world, state.task), cameras)
+        return self.renderer._render(
+            world_poses(state.world, state.task), cameras)
 
     def _step_and_render(self, state, action):
-        """One step of ``state`` and the GS render of the new state."""
-        with record_function("gsw.closed_loop.physics"):
-            (state, obs, reward, terminated, truncated,
-             info) = self.env._step_fn(state, action)
+        """One step of ``state`` and the GS render of the new state.  On a
+        card it stamps the device's clock (``utils.profiling.stamp``) at
+        its begin and between the physics and the render; the step graph
+        stamps its end."""
+        dev = self.env.device
+        stamp("loop.begin", dev)
+        (state, obs, reward, terminated, truncated,
+         info) = self.env._step_fn(state, action)
+        stamp("loop.physics|render", dev)
         obs = dict(obs)
         obs["sensor_data"] = self._render_fn(state)
         return state, obs, reward, terminated, truncated, info
@@ -388,7 +391,8 @@ class GSWorldWrapper:
             self._step_graph = StepGraph(self._step_and_render,
                                          self.env.device, self.env._state,
                                          action, "the closed-loop step",
-                                         pool=self.env.graph_pool())
+                                         pool=self.env.graph_pool(),
+                                         end_tag="loop.end")
             # the render's overflow output of the graph
             self._step_overflow = self.renderer.last_overflow
         return self._step_graph
@@ -440,16 +444,19 @@ class GSWorldWrapper:
         """One step and the GS render of the new state; through the
         wrapper's CUDA graph where the env's ``step`` replays one (its
         outputs are tensors of their own, as the eager step's)."""
-        action = self.env._as_action(action)
-        if self.env._graphed():
-            out = self.step_graph(action)(self.env._state, action)
-            self.renderer.last_overflow = self._step_overflow
-        else:
-            out = self._step_and_render(self.env._state, action)
-        (self.env._state, obs, reward, terminated, truncated, info) = out
-        if self.log_state:
-            self.save_state_log()
-        return obs, reward, terminated, truncated, info
+        with span("gsw.step"):
+            action = self.env._as_action(action)
+            if self.env._graphed():
+                out = self.step_graph(action)(self.env._state, action)
+                self.renderer.last_overflow = self._step_overflow
+            else:
+                out = self._step_and_render(self.env._state, action)
+                stamp("loop.end", self.env.device)
+            (self.env._state, obs, reward, terminated, truncated,
+             info) = out
+            if self.log_state:
+                self.save_state_log()
+            return obs, reward, terminated, truncated, info
 
     def save_state_log(self) -> str:
         """Save the current env state as a restorable bundle,
