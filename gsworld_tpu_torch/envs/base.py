@@ -486,7 +486,9 @@ class GsBaseEnv:
         """The host part of a reset: ``draws`` (B, episode_draws) and
         ``dr_draws`` (B, dr_draws) -> the EnvState of the episode, laid
         out where the draws are (the CPU, for ``reset``) and copied to the
-        env's device once, so it is the same episode on every device."""
+        env's device once, so it is the same episode on every device.
+        Counts the randomization's draws it consumes (``dr.draws/<env>``,
+        B x ``dr_draws``)."""
         scene = self.scene
         host = draws.device
         ep = self._initialize_episode(draws)
@@ -509,6 +511,7 @@ class GsBaseEnv:
         if dr_draws is None:
             dr_draws = torch.zeros((Bn, 0), **f32)
         world, task = self._randomize_world(world, ep.task, dr_draws)
+        count("dr.draws", type(self).__name__, dr_draws.numel())
         dev = self.device
         world = WorldState(**{f: (None if getattr(world, f) is None
                                   else getattr(world, f).to(dev))

@@ -23,7 +23,8 @@ port's own recording of where a step's time goes.
   waits for a flag the host sets between two reads of its clock.
 - ``counters``: one registry of integer counters by group
   (``kernel_launches/<kernel>``, ``graph.captures/<what>``,
-  ``graph.replays/<what>``, ``host.sync/<site>``, ``stamps/lost``).
+  ``graph.replays/<what>``, ``host.sync/<site>``, ``stamps/lost``,
+  ``dr.draws/<env>``).
 """
 
 from __future__ import annotations
@@ -167,7 +168,8 @@ class Gap(NamedTuple):
 STAMP_TAGS = ("anchor",
               "loop.begin", "loop.physics|render", "loop.end",
               "train.begin", "train.forward|backward",
-              "train.backward|update", "train.end")
+              "train.backward|update", "train.end",
+              "reset.begin", "reset.end")
 _TAG_INDEX = {t: i for i, t in enumerate(STAMP_TAGS)}
 # consecutive stamps -> the device span between them
 DEVICE_SPANS = {
@@ -178,8 +180,10 @@ DEVICE_SPANS = {
     ("train.forward|backward", "train.backward|update"): "train.backward",
     ("train.backward|update", "train.end"): "train.update",
     ("train.end", "train.begin"): "train.between",
+    ("reset.begin", "reset.end"): "loop.reset",
 }
-# the device spans from one graph's end to the next one's begin
+# the device spans from one step graph's end to the next one's begin
+# (a reset between two loop steps lies inside their "between")
 BETWEEN = ("loop.between", "train.between")
 MAX_SPANS = 1 << 18
 
@@ -411,7 +415,8 @@ def innermost(spans: List[SpanRecord], t_ns: int) -> str:
 def pair_stamps(tags: List[str], ns) -> List[Tuple[str, int, int]]:
     """Consecutive stamps -> (name, start ns, end ns): the pair's name in
     DEVICE_SPANS, else ``"<a>..<b>"``; pairs with an anchor are left
-    out."""
+    out.  Where resets lie between two loop steps, the first step's end
+    to the next one's begin is also their ``loop.between``."""
     out = []
     for i in range(1, len(tags)):
         a, b = tags[i - 1], tags[i]
@@ -419,6 +424,12 @@ def pair_stamps(tags: List[str], ns) -> List[Tuple[str, int, int]]:
             continue
         out.append((DEVICE_SPANS.get((a, b), f"{a}..{b}"), int(ns[i - 1]),
                     int(ns[i])))
+        if (a, b) == ("reset.end", "loop.begin"):
+            j = i - 1
+            while j > 0 and tags[j].startswith("reset."):
+                j -= 1
+            if tags[j] == "loop.end":
+                out.append(("loop.between", int(ns[j]), int(ns[i])))
     return out
 
 

@@ -411,9 +411,13 @@ class GSWorldWrapper:
     def _reset_and_render(self, state):
         """The device part of a reset of the laid-out ``state`` and its GS
         render (the JAX wrapper's ``_reset_and_render`` after the layout)
-        -> (obs, the render's overflow)."""
+        -> (obs, the render's overflow).  On a card it stamps the device's
+        clock at its begin and end (captured into the reset graph)."""
+        dev = self.env.device
+        stamp("reset.begin", dev)
         obs = dict(self.env._reset_tail(state))
         obs["sensor_data"] = self._render_fn(state)
+        stamp("reset.end", dev)
         return obs, self.renderer.last_overflow
 
     def reset_graph(self, state) -> FnGraph:
@@ -435,19 +439,24 @@ class GSWorldWrapper:
     def reset(self, seed: Optional[int] = None,
               options: Optional[dict] = None):
         seed = 0 if seed is None else seed
-        self.env._action_gen = torch.Generator().manual_seed(seed + 1)
-        return self._reset_from_draws(*self.env.reset_draws(seed)), {}
+        with span("gsw.reset"):
+            self.env._action_gen = torch.Generator().manual_seed(seed + 1)
+            return self._reset_from_draws(*self.env.reset_draws(seed)), {}
 
     def _reset_from_draws(self, draws, dr_draws):
-        """A reset from its draws: the env's host layout, then its device
-        tail and the render through the wrapper's reset graph on a graphed
-        env (eagerly otherwise); the env takes the new state -> obs."""
+        """A reset from its draws: the env's host layout (span
+        ``gsw.reset.layout``), then its device tail and the render through
+        the wrapper's reset graph on a graphed env (eagerly otherwise;
+        span ``gsw.reset.launch``); the env takes the new state -> obs."""
         env = self.env
-        state = env._reset_layout(draws, dr_draws)
-        if env._graphed():
-            obs, self.renderer.last_overflow = self.reset_graph(state)(state)
-        else:
-            obs = self._reset_and_render(state)[0]
+        with span("gsw.reset.layout"):
+            state = env._reset_layout(draws, dr_draws)
+        with span("gsw.reset.launch"):
+            if env._graphed():
+                obs, self.renderer.last_overflow = self.reset_graph(state)(
+                    state)
+            else:
+                obs = self._reset_and_render(state)[0]
         env._state = state
         return obs
 
