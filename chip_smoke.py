@@ -76,6 +76,18 @@ Phases (each prints a line; any failure exits non-zero before a result):
               the same split noise, bit for bit
   5b. step    one training step of a ~2k-Gaussian scene at 160x120 on the
               card against the same step on the CPU
+  6n. newton  the contact solver's normal Newton kernel
+              (csrc/contact_newton.cu, world.normal_newton) vs its plain
+              version on the systems of seeded steps at e64's (64 envs x
+              180 rows), dr64's (64 x 108) and e1's (1 x 180) shapes, and
+              on the same matrices with every row active, as they are
+              and shifted by their mean diagonal: the seeded systems at 64
+              envs bit for bit, at one env and the shifted ones an LCP
+              residual within NEWTON_RES_RATIO of the plain version's;
+              the kernel's time a launch by the profiler beside the plain
+              version's (the _Factor path) by CUDA events, eager and from
+              a CUDA graph, and the float32 bound of the work, and both
+              sides' gaps to a float64 run (tools/solve_times.py)
   6a. physics AlignFr3Env-v1 (obs_mode state_dict) at 1, 4 and 64 envs:
               reset(seed), env.step calls of random actions, 10 eager
               (graph=False) and 30 through the CUDA graph of the whole
@@ -268,12 +280,18 @@ KERNEL_NAMES = {"emit_entries": "emit_kernel",
                 "composite_tiles": "composite_kernel",
                 "composite_bwd": "composite_bwd_kernel",
                 "sum_entry_rows": "entry_rows_kernel",
-                "project_posed": "project_posed_kernel"}
+                "project_posed": "project_posed_kernel",
+                "normal_newton": "normal_newton_kernel"}
 TRAIN_KERNELS = ("composite_bwd", "sum_entry_rows")  # the train path's own
 # the render path's (one launch per render); training projects through
 # PyTorch (render/project.py:project_frames), so it launches no preprocess
 RENDER_KERNELS = ("emit_entries", "composite_tiles", "project_posed")
 RENDER_ONLY_KERNELS = ("project_posed",)
+PHYSICS_KERNELS = ("normal_newton",)   # the env step's own
+# kernels per replay (by the kernels' names) of a render or reset graph;
+# a step graph's add the physics' (``step_replay_kernels``)
+REPLAY_KERNELS = {"emit_kernel": 1, "composite_kernel": 1,
+                  "project_posed_kernel": 1, "normal_newton_kernel": 0}
 BURST = 50              # launches per window of the back-to-back clock
 PHYS_ENVS = (1, 4, 64)
 PHYS_STEPS = 30
@@ -283,6 +301,14 @@ GRAPH_STEPS = 10        # graph vs eager, bit for bit
 # one control step, card vs CPU, from the same state (absolute)
 PHYS_POS_TOL = 1e-5
 PHYS_VEL_TOL = 1e-3
+# normal Newton kernel where it need not give the plain version's bits
+# (one env, whose plain version takes other library routines than a
+# batch's; the shifted all-rows systems): the median over envs of its
+# LCP residual (tools/solve_times.lcp_residual) at most NEWTON_RES_RATIO
+# times the plain version's, floor NEWTON_RES_FLOOR (float32 rounding of
+# w reads ~1e-7; x = 0 reads 1)
+NEWTON_RES_RATIO = 3.0
+NEWTON_RES_FLOOR = 1e-6
 REST_STEPS = 40
 LOOP_STEPS = 30
 SHARDS = 2              # 9a: shards of the split loop on one card
@@ -458,13 +484,13 @@ def phase_device():
 
 
 def phase_build():
-    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.utils import kernels
     t0 = time.perf_counter()
-    rc.build_kernels()
+    kernels.build_kernels()
     dt = time.perf_counter() - t0
-    if rc.build_log():
+    if kernels.build_log():
         with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
-            f.write(rc.build_log())
+            f.write(kernels.build_log())
     log(f"phase 2 build: {dt:.2f} s (nvcc sm_90a, ptxas report in "
         f"chiprun_out/ptxas.txt)")
 
@@ -1026,8 +1052,8 @@ def phase_slice(renderer, states):
     each form; every state's rgb, segmentation and overflow of the graph
     bit for bit the eager render's; one preprocess, emit and compositor kernel
     per replay by the profiler -> (launch counts of the phase: the eager
-    renders and the graph's capture, the line, emit kernels per
-    replay)."""
+    renders and the graph's capture, the line, {kernel name: kernels per
+    replay})."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.utils.cuda_graph import FnGraph
@@ -1089,7 +1115,7 @@ def phase_slice(renderer, states):
             f"entries in the last step, launches {counts} (the eager renders "
             f"and the graph's capture)")
     log(line)
-    return counts, line, per["emit_kernel"]
+    return counts, line, per
 
 
 def phase_profile(phase, what, step):
@@ -1484,7 +1510,8 @@ def train_run(setup, graph):
                              f"expected 3 passes that change the alive count")
     want = TrainStepGraph.WARMUP + 1 if graph else TRAIN_ITERS
     for name, n in counts.items():
-        if n != (0 if name in RENDER_ONLY_KERNELS else want):
+        if n != (0 if name in RENDER_ONLY_KERNELS + PHYSICS_KERNELS
+                 else want):
             raise AssertionError(f"{what}: kernel {name} launched {n} times "
                                  f"from the host in {TRAIN_ITERS} iterations "
                                  f"(want {want})")
@@ -1500,8 +1527,9 @@ def train_run(setup, graph):
             prof, TRAIN_PROFILE_STEPS,
             f"train-step replays after the first densify (iterations "
             f"{window.start}-{window.stop - 1})",
-            ("emit_kernel", "composite_kernel", "composite_bwd_kernel",
-             "entry_rows_kernel"), 1,
+            {"emit_kernel": 1, "composite_kernel": 1,
+             "composite_bwd_kernel": 1, "entry_rows_kernel": 1,
+             "normal_newton_kernel": 0}, 1,
             TRAIN_PROFILE_STEPS, prof_wall[0])
     ms = [1000.0 * dt for dt, skip in step_s[5:] if not skip]
     return dict(scene=scene, losses=losses, counts=counts, peak=peak,
@@ -1997,6 +2025,47 @@ def physics_steps(B, graph, **kw):
     return env, ms, peak, kernels
 
 
+def phase_newton():
+    """6n: the normal Newton kernel vs its plain version at the benchmark
+    cells' shapes (``tools/solve_times.newton_times``) -> (the kernel's
+    entry for the kernels line, its lines)."""
+    from gsworld_tpu_torch.tools import solve_times
+    rows = solve_times.newton_times(seed=SEED)
+    lines = [f"phase 6n {solve_times.newton_line(r)}" for r in rows]
+    for line in lines:
+        log(line)
+    # the seeded systems at 64 envs: the plain version's bits; at one env
+    # and on the shifted all-rows systems (whose last product the plain
+    # version sums in an order not fitted in a few envs): an LCP residual
+    # as small as the plain version's; on the redundant all-rows systems,
+    # which neither side resolves in 7 steps, timing and x >= 0 only
+    def off(r):
+        if r["systems"] == "seeded" and r["B"] > 1:
+            return r["max_rel_err"] != 0.0
+        if r["systems"] == "all rows":     # 7 steps resolve neither side
+            return not r["finite_nonneg"]
+        return r["res_median"] > NEWTON_RES_RATIO * max(
+            NEWTON_RES_FLOOR, r["plain_res_median"])
+
+    bad = [r for r in rows if off(r)]
+    if bad:
+        raise AssertionError(f"normal_newton off the plain version: {bad}")
+    seeded = [r for r in rows if r["systems"] == "seeded"]
+    e64 = next(r for r in seeded if r["shape"] == "e64")
+    entry = dict(name="normal_newton", route="cuda",
+                 source="gsworld_tpu_torch/csrc/contact_newton.cu",
+                 replaces="none (physics/world.py's normal stage: "
+                          "cuSOLVER potrf + cuBLAS trsm; XLA in JAX)",
+                 max_rel_err=max(r["max_rel_err"] for r in seeded),
+                 ms=e64["ms"], call_ms=e64["call_ms"],
+                 plain_ms=e64["library_ms"],
+                 library_ms=e64["library_ms"],
+                 library_graph_ms=e64["library_graph_ms"],
+                 bound_ms=e64["bound_ms"],
+                 bound_by="f32", shapes=rows)
+    return entry, lines
+
+
 def phase_physics():
     """6a: the physics step alone, eager and through its CUDA graph."""
     import torch
@@ -2406,8 +2475,8 @@ def phase_xarm_loop():
     counts, text, _, ms = timed_loop(wrapper, "xArm loop")
     if set(env.state.task) != {"obj_color", "cam_pose_noise"}:
         raise AssertionError(f"xArm loop: task state {set(env.state.task)}")
-    scan_ms, scan_text, _ = scanned_loop(wrapper, "xArm scanned loop",
-                                         LOOP_STEPS)
+    scan_ms, scan_text, scan_counts = scanned_loop(
+        wrapper, "xArm scanned loop", LOOP_STEPS)
     cam = env.cameras[0]
     line = (f"phase 6d xArm closed loop, AlignXArmEnv-v1 with domain "
             f"randomization, {NUM_ENVS} envs x {len(env.cameras)} cams "
@@ -2425,7 +2494,8 @@ def phase_xarm_loop():
                   "inside the graphs): " + reset_render_vs_eager(
                       wrapper, "6d xArm closed loop")[0])
     log(reset_line)
-    return counts, [line, scan_line, reset_line], wrapper
+    return (dict(counts, per_replay=scan_counts["per_replay"]),
+            [line, scan_line, reset_line], wrapper)
 
 
 def check_tint(wrapper):
@@ -2532,12 +2602,14 @@ def frames_of(obs):
 def timed_loop(wrapper, what, steps=None):
     """rollout_fps over ``steps`` closed-loop steps (LOOP_STEPS unless
     given; at most EAGER_STEPS eager), first eager (``graph=False``: one
-    emit and one compositor launch per step on the launch counters),
+    preprocess, emit and compositor launch and ``newton_per_step``
+    normal_newton launches per step on the launch counters),
     then through the wrapper's
     CUDA graph (the env's ``graph=True``: the capture in the warm-up, one
     replay per step, no counter moves in the timed steps, and the
-    profiler counts one preprocess, emit and compositor kernel per
-    replay), each with its peak memory; frames of the cameras' shape, a
+    profiler counts one preprocess, emit and compositor kernel and
+    ``newton_per_step`` normal_newton kernels per replay), each with its
+    peak memory; frames of the cameras' shape, a
     finite state;
     then up to 10 further steps of the eager step's two parts (a replay
     cannot be split) timed by CUDA events, whose observation is checked
@@ -2563,8 +2635,10 @@ def timed_loop(wrapper, what, steps=None):
         fps, spf, frames = rollout_fps(wrapper, n, seed=SEED, warmup=2,
                                        on_timed_start=timed_start)
         counts = dict(rc.launch_counts)
-        for name in RENDER_KERNELS:
-            if counts[name] != (0 if graph else n):
+        per_step = dict.fromkeys(RENDER_KERNELS, 1)
+        per_step["normal_newton"] = newton_per_step(env)
+        for name, k in per_step.items():
+            if counts[name] != (0 if graph else k * n):
                 raise AssertionError(
                     f"{what} ({'graph' if graph else 'eager'}): kernel "
                     f"{name} launched {counts[name]} times from the host in "
@@ -2604,15 +2678,14 @@ def timed_loop(wrapper, what, steps=None):
                                        "graph": runs[True][1]}
 
 
-def replay_kernels(run, calls, what, names=("emit_kernel",
-                                            "composite_kernel",
-                                            "project_posed_kernel"),
+def replay_kernels(run, calls, what, names=REPLAY_KERNELS,
                    per_call=1, d2h=0, check=None):
     """torch.profiler over ``run()``, which makes ``calls`` calls that
     replay CUDA graphs (scanned steps, steps, sharded steps): exactly
-    ``per_call`` kernels of each of ``names`` per call by the kernels'
-    names, and ``d2h`` copies from the device to the host in all (None:
-    any number, printed); a window that shows another count raises.
+    ``names[name] * per_call`` kernels named with each ``name`` per call
+    (``names`` {name: count}, or names of one each), and ``d2h`` copies
+    from the device to the host in all (None: any number, printed); a
+    window that shows another count raises.
     The launch counters do not see replays.  ``check(out)``, when given, holds what the replays
     returned against eager steps -> (equal, text): unequal raises, and a
     wrong count's error says whether the outputs were right (the
@@ -2653,12 +2726,14 @@ def window_kernels(prof, calls, what, names, per_call, d2h, wall,
     def count(word):
         return sum(c for k, (c, _) in kern.items() if word in k)
 
-    got = {w: count(w) for w in names}
+    want = {w: per_call * (names[w] if isinstance(names, dict) else 1)
+            for w in names}
+    got = {w: count(w) for w in want}
     copies = count("DtoH")
-    if any(v != per_call * calls for v in got.values()) or (
+    if any(got[w] != want[w] * calls for w in want) or (
             d2h is not None and copies != d2h):
         raise AssertionError(f"{what}: {calls} calls ran kernels {got} "
-                             f"(want {per_call} of each per call) and "
+                             f"(want {want} per call) and "
                              f"{copies} copies to the host (want {d2h})"
                              + (f"; {note}" if note else ""))
     busy = sum(t for _, t in kern.values()) / 1e3            # ms
@@ -2671,6 +2746,24 @@ def window_kernels(prof, calls, what, names, per_call, d2h, wall,
             f"busy {100 * busy / (1e3 * wall):.1f}%)"
             + (f"; {note}" if note else ""))
     return text, {k: v // calls for k, v in got.items()}
+
+
+def newton_per_step(env):
+    """normal_newton launches of one step of ``env``: one per substep and
+    normal stage (two with a friction stage), none without contact rows
+    (the solver returns before the stage)."""
+    from gsworld_tpu_torch.physics.world import contact_row_count
+    sc = env.scene
+    if not contact_row_count(sc):
+        return 0
+    return sc.substeps * (1 if sc.solver.friction_stage == "off" else 2)
+
+
+def step_replay_kernels(env):
+    """REPLAY_KERNELS of a replay of ``env``'s step graph: the render's
+    kernels and the physics' normal_newton launches."""
+    return dict(REPLAY_KERNELS,
+                normal_newton_kernel=newton_per_step(env))
 
 
 def uncounted(fn):
@@ -2689,8 +2782,8 @@ def scan_kernels(wrapper, what):
     one graph replay per step): one preprocess, emit and compositor kernel per
     replay, no copy to the host before the last step's end, and the
     window's frames bit for bit the same steps run eagerly
-    (``_step_and_render`` from the window's start state) -> (text, emit
-    kernels per replay as the profiler counted them)."""
+    (``_step_and_render`` from the window's start state) -> (text,
+    {kernel name: kernels per replay} as the profiler counted them)."""
     import torch
     from gsworld_tpu_torch.envs.base import _clone_state
     from gsworld_tpu_torch.rollout.random_actions import scan_steps
@@ -2715,19 +2808,21 @@ def scan_kernels(wrapper, what):
                        "from the same steps run eagerly")
 
     text, out, per = replay_kernels(lambda: scan_steps(wrapper, acts), n,
-                                    f"scanned steps ({what})", check=check)
+                                    f"scanned steps ({what})",
+                                    names=step_replay_kernels(env),
+                                    check=check)
     if out[0].shape[0] != n or out[1].shape != (n,):
         raise AssertionError(f"{what}: scanned frames "
                              f"{tuple(out[0].shape)}, means "
                              f"{tuple(out[1].shape)}")
-    return text, per["emit_kernel"]
+    return text, per
 
 
 def step_kernels(wrapper, what, n=SCAN_PROFILE_STEPS):
     """The profiler over ``n`` ``wrapper.step`` calls through the
-    wrapper's CUDA graph: one preprocess, emit and compositor kernel per
-    step, no copy to the host; the env's state is restored after them ->
-    text."""
+    wrapper's CUDA graph: one preprocess, emit and compositor kernel and
+    ``newton_per_step`` normal_newton kernels per step, no copy to the
+    host; the env's state is restored after them -> text."""
     import torch
     from gsworld_tpu_torch.envs.base import _clone_state
     env = wrapper.env
@@ -2738,7 +2833,8 @@ def step_kernels(wrapper, what, n=SCAN_PROFILE_STEPS):
                                    steps=n)
     saved = _clone_state(env.state)
     text, _, _ = replay_kernels(lambda: [wrapper.step(a) for a in acts], n,
-                                f"steps through the graph ({what})")
+                                f"steps through the graph ({what})",
+                                names=step_replay_kernels(env))
     env._state = saved
     return text
 
@@ -2816,9 +2912,9 @@ def scanned_loop(wrapper, what, steps):
     env = wrapper.env
     cam = env.cameras[0]
     # the captures the reset and the first scanned step make, if not made
+    step_made = wrapper._step_graph is not None
     want = ((0 if wrapper._reset_graph is not None else FnGraph.WARMUP + 1)
-            + (0 if wrapper._step_graph is not None
-               else StepGraph.WARMUP + 1))
+            + (0 if step_made else StepGraph.WARMUP + 1))
     before = {}
 
     def timed_start():
@@ -2835,11 +2931,15 @@ def scanned_loop(wrapper, what, steps):
             or frames.dtype.name != "uint8" or frames.std() < 5.0:
         raise AssertionError(f"{what}: scanned frames {frames.shape} "
                              f"{frames.dtype}")
-    for name in RENDER_KERNELS:
-        if before[name] != want or rc.launch_counts[name]:
+    # the physics runs in the step graph's captures only
+    wants = dict.fromkeys(RENDER_KERNELS, want)
+    wants["normal_newton"] = newton_per_step(env) * (
+        0 if step_made else StepGraph.WARMUP + 1)
+    for name, w in wants.items():
+        if before[name] != w or rc.launch_counts[name]:
             raise AssertionError(
                 f"{what}: {name} launched {before[name]} times before the "
-                f"timed reps (want {want}: the captures of the reset and "
+                f"timed reps (want {w}: the captures of the reset and "
                 f"step graphs not made before) and {rc.launch_counts[name]} "
                 f"in them (want 0)")
     check_finite(env.state.world, what)
@@ -2955,8 +3055,8 @@ def reset_render_vs_eager(wrapper, what):
     included), the overflow and the state after a reset bit for bit, and
     what call k returned unchanged after call k + 1; ms per call of each
     form (calls 2 on); one preprocess, emit and compositor kernel per reset and
-    render replay by the profiler -> (text, emit kernels per reset
-    replay)."""
+    render replay by the profiler, and no physics kernel -> (text,
+    {kernel name: kernels per reset replay})."""
     import torch
     from gsworld_tpu_torch.envs.base import _state_tensors
     env, r = wrapper.env, wrapper.renderer
@@ -3021,7 +3121,7 @@ def reset_render_vs_eager(wrapper, what):
             f"bit for bit, call k's outputs unchanged after call k + 1; ms "
             f"per call (host clock to a synchronize, medians of calls 2 on) "
             f"{times}; {reset_text}; {render_text}")
-    return text, per["emit_kernel"]
+    return text, per
 
 
 def phase_scan_loop(tmp, device="cuda"):
@@ -4061,7 +4161,7 @@ def shard_vs_unsharded(env, wrapper, mesh):
         rc.reset_launch_counts()
         t_s, out_s = step_ms(lambda: loop.step(a))
         if i and any(rc.launch_counts[k]
-                     for k in RENDER_KERNELS):
+                     for k in RENDER_KERNELS + PHYSICS_KERNELS):
             raise AssertionError(f"9a: host launches in a sharded step "
                                  f"after the capture {rc.launch_counts}, "
                                  f"want none (one graph replay per shard)")
@@ -4091,6 +4191,7 @@ def shard_vs_unsharded(env, wrapper, mesh):
     a = env.action_space_sample(gen)
     prof_text, _, _ = replay_kernels(lambda: loop.step(a), 1,
                                      f"sharded step over {n} shards",
+                                     names=step_replay_kernels(env),
                                      per_call=n)
     b = NUM_ENVS // n
     line = (f"phase 9a {n} shards on {[str(d) for d in mesh]} "
@@ -4233,7 +4334,7 @@ def phase_shard():
     # each shard's step replays its wrapper's graph, captured in the
     # warm-up: no host launch in the timed steps (the profiler counts one
     # kernel of each per shard and step in the lines below)
-    for name in RENDER_KERNELS:
+    for name in RENDER_KERNELS + PHYSICS_KERNELS:
         if counts[name]:
             raise AssertionError(f"9a: {name} launched {counts[name]} times "
                                  f"from the host in {LOOP_STEPS} steps over "
@@ -4430,9 +4531,10 @@ def main(argv=None):
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1-3b only and print no result line")
     ap.add_argument("--physics-only", action="store_true",
-                    help="run phases 1, 6a, 6b and 6d's EE-mode and task "
-                         "rows only (no kernel is built) and print no "
-                         "result line")
+                    help="run phases 1, 6n, 6a, 6b and 6d's EE-mode and "
+                         "task rows only (the contact kernel builds the "
+                         "library at its first launch) and print no result "
+                         "line")
     ap.add_argument("--scans-only", action="store_true",
                     help="run phases 1, 2, 7a and 7b only and print no "
                          "result line")
@@ -4459,6 +4561,7 @@ def main(argv=None):
     sys.path.insert(0, REPO)
     if args.physics_only:
         phase_physics()
+        phase_newton()
         phase_rest()
         phase_ee_modes()
         phase_tasks()
@@ -4520,6 +4623,8 @@ def main(argv=None):
     del renderer, states, setup
     torch.cuda.empty_cache()
     physics_lines = phase_physics()
+    newton_entry, newton_lines = phase_newton()
+    physics_lines += newton_lines
     phase_rest()
     loop_counts, scan_counts, loop_lines = phase_closed_loop()
     ee_lines = phase_ee_modes()
@@ -4538,13 +4643,16 @@ def main(argv=None):
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     bench_lines = phase_bench(scan_counts["scanned_ms"])
     # launches: the render path's for its kernels, the training path's for
-    # its two (every path's counts are in the lines below); the
-    # closed loop's launches of the forward kernels ride along.  The train
-    # path replays one CUDA graph per iteration: its host counts are the
-    # capture's (warm-up steps and capture), and the profiler counts one
-    # kernel of each per replay (phase 5's lines)
+    # its two, the eager closed loop's for the physics' (every path's
+    # counts are in the lines below); the closed loop's launches of the
+    # forward kernels ride along.  The train path replays one CUDA graph
+    # per iteration: its host counts are the capture's (warm-up steps and
+    # capture), and the profiler counts one kernel of each per replay
+    # (phase 5's lines)
+    kernels.append(newton_entry)
     for k in kernels:
         k["launches"] = (train_counts if k["name"] in TRAIN_KERNELS
+                         else loop_counts if k["name"] in PHYSICS_KERNELS
                          else counts)[k["name"]]
         k["train_graph_launches_at_capture"] = train_counts[k["name"]]
         k["train_graph_replays"] = train_graph["replays"]
@@ -4560,13 +4668,17 @@ def main(argv=None):
             # the counters move at capture, the profiler counts replays
             k["scanned_loop_launches_before_replays"] = scan_counts[
                 k["name"]]
-            k["scanned_loop_kernels_per_replay"] = scan_counts["per_replay"]
+            kname = KERNEL_NAMES[k["name"]]
+            k["scanned_loop_kernels_per_replay"] = scan_counts[
+                "per_replay"][kname]
             # the render graph's (phase 4) and the wrapper's reset graph's
             # (6c) kernels of each name per replay, by the profiler
-            k["render_graph_kernels_per_replay"] = render_per_replay
+            k["render_graph_kernels_per_replay"] = render_per_replay[kname]
             k["reset_graph_kernels_per_replay"] = scan_counts[
-                "reset_per_replay"]
+                "reset_per_replay"][kname]
             k["xarm_loop_launches"] = xarm_counts[k["name"]]
+            k["xarm_scanned_loop_kernels_per_replay"] = xarm_counts[
+                "per_replay"][kname]
             k["scan_loop_launches"] = scans["scan_loop"][k["name"]]
             k["real2sim_loop_launches"] = scans["real2sim_loop"][k["name"]]
             k["shard_loop_launches"] = shard_counts[k["name"]]

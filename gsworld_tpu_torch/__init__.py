@@ -17,8 +17,10 @@ Subpackage map (module names follow the JAX package):
   gs/        Gaussian scene tensors, PLY I/O, real-scan merging, synthetic
              scenes, slot reposing
   render/    camera bridge, projection, binning, compositing; the CUDA
-             kernels live in ``csrc/`` and are bound in
-             ``render/rasterize_cuda.py``
+             kernels live in ``csrc/``, are built and bound in
+             ``utils/kernels.py`` and wrapped in
+             ``render/rasterize_cuda.py`` (the contact kernel in
+             ``physics/world.py``)
   wrapper/   GSWorldRenderer and GSWorldWrapper: FK -> slots -> repose ->
              render, batched over envs x cameras, in the env step
   rollout/   the random-action closed loop, the motion planners and

@@ -39,6 +39,7 @@ from gsworld_tpu_torch.core.maths import (
 from gsworld_tpu_torch.physics import contact as C
 from gsworld_tpu_torch.physics import dynamics as D
 from gsworld_tpu_torch.physics.kinematics import ArticulationModel
+from gsworld_tpu_torch.utils import kernels
 
 cross = torch.linalg.cross
 
@@ -121,7 +122,6 @@ class SceneTensors:
     h_gravity: torch.Tensor      # (3,) h * g
     ez: torch.Tensor             # (3,)
     ex: torch.Tensor
-    eye_c: torch.Tensor          # (C, C)
     eye_2c: torch.Tensor         # (2C, 2C)
     # directed hull queries over the unified body table (links, actors)
     q_src: torch.Tensor          # (Q,) int64
@@ -289,7 +289,7 @@ def scene_tensors(scene: PhysicsScene, device) -> SceneTensors:
         force_limit=t(np.broadcast_to(scene.force_limit, (nd,))),
         h_gravity=t(np.float32(scene.h) * np.asarray(D.GRAVITY, np.float32)),
         ez=t([0.0, 0.0, 1.0]), ex=t([1.0, 0.0, 0.0]),
-        eye_c=torch.eye(Cn, **f32), eye_2c=torch.eye(2 * Cn, **f32),
+        eye_2c=torch.eye(2 * Cn, **f32),
         q_src=ti(q_src), q_dst=ti(q_dst), q_part=ti(np.arange(Q) ^ 1),
         q_even=torch.as_tensor(np.arange(Q) % 2 == 0, device=device),
         q_pref_unit=t(q_pref),
@@ -486,11 +486,12 @@ def _tangent_basis(n, ez, ex):
 class _Factor:
     """A batch of symmetric positive definite matrices factored once
     (Cholesky, no check on the host) and solved against several right-hand
-    sides by two triangular solves.  These routines stay in cuSOLVER's
-    batched factorization and cuBLAS, which a CUDA graph can capture;
-    ``cholesky_solve`` and the LU routines go through MAGMA for a batch,
-    which allocates during capture (tools/solve_times.py times all
-    three)."""
+    sides by two triangular solves: the friction QP's (2C, 2C) systems and
+    the plain version of the normal stage.  These routines stay in
+    cuSOLVER's batched factorization and cuBLAS, which a CUDA graph can
+    capture; ``cholesky_solve`` and the LU routines go through MAGMA for a
+    batch, which allocates during capture (tools/solve_times.py times
+    them)."""
 
     def __init__(self, A):
         self.L = torch.linalg.cholesky_ex(A).L
@@ -504,6 +505,119 @@ class _Factor:
 
 def _matvec(A, x):
     return (A @ x[..., None])[..., 0]
+
+
+def _tikhonov(Am, eye):
+    return (Am + 1e-3 * torch.diag_embed(torch.diagonal(Am, dim1=-2, dim2=-1))
+            + 1e-9 * eye)
+
+
+def _masked(Am, m):
+    """Rows and columns outside ``m`` replaced by the identity."""
+    return (torch.where(m[:, :, None] & m[:, None, :], Am, 0.0)
+            + torch.diag_embed((~m).to(Am.dtype)))
+
+
+NEWTON_ITERS = 7      # active-set Newton steps of the normal stage
+NEWTON_REFINES = 2    # refinements against the unregularized matrix a step
+
+
+def normal_newton_reference(An_raw, act_mask, rhs, x_init):
+    """Plain version of :func:`normal_newton` (same inputs and output):
+    each step factors the masked, Tikhonov-regularized system by
+    ``_Factor`` and solves it three times."""
+    n = An_raw.shape[-1]
+    An = _tikhonov(An_raw, torch.eye(n, dtype=An_raw.dtype,
+                                     device=An_raw.device))
+    x = x_init.clamp_min(0.0)
+    act = act_mask & ((x > 0.0) | (rhs < 0.0))
+    for _ in range(NEWTON_ITERS):
+        fac = _Factor(_masked(An, act))
+        A_raw = _masked(An_raw, act)
+        rhs_m = torch.where(act, rhs, 0.0)
+        x = fac.solve(-rhs_m)
+        for _ in range(NEWTON_REFINES):
+            x = x - fac.solve(_matvec(A_raw, x) + rhs_m)
+        x = torch.where(act, x, 0.0)                      # unclamped on act
+        w = _matvec(An_raw, x) + rhs
+        act = act_mask & (x > w)
+    return torch.where(act, x, 0.0).clamp_min(0.0)
+
+
+_newton_limits = {}   # device index -> normal_newton_limits
+
+
+def normal_newton_limits(dev: torch.device):
+    """(rows up to which csrc/contact_newton.cu keeps the matrix beside
+    its factor in shared memory, rows up to which the factor fits at
+    all) on ``dev``, from its shared memory per block."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _newton_limits:
+        lib = kernels.build_kernels()
+        with torch.cuda.device(idx):
+            got = [lib.gsw_normal_newton_max_rows(k) for k in (1, 0)]
+        for v in got:
+            if v < 0:
+                kernels.check(lib, -v, "normal_newton_limits")
+        _newton_limits[idx] = tuple(got)
+    return _newton_limits[idx]
+
+
+def normal_newton(An_raw, act_mask, rhs, x_init):
+    """The normal impulses (B, C) of the contact LCP w = An_raw x + rhs,
+    x >= 0, w >= 0, x w = 0 on the rows of ``act_mask``, by semismooth
+    (min-map) Newton on min(x, w) = 0: solve w = 0 on the active set,
+    then switch act <- {x > w}, NEWTON_ITERS times from ``x_init``
+    clamped at 0.  Tikhonov regularization keeps the masked solve
+    well-posed (rows on a sandwiched body are redundant); its compliance
+    bias is removed by NEWTON_REFINES refinements against the
+    unregularized matrix.
+
+    ``An_raw`` (B, C, C) f32, the normal block of the Delassus matrix,
+    any strides; ``act_mask`` (B, C) bool, the rows that may push;
+    ``rhs`` and ``x_init`` (B, C) f32.  On the card one launch of
+    csrc/contact_newton.cu (one block per env), which sums in the order
+    of the plain version's batched library routines: its bits on the
+    loops' systems at 64 envs, float32 rounding at one env; on the CPU
+    the plain version."""
+    if An_raw.device.type == "cpu":
+        return normal_newton_reference(An_raw, act_mask, rhs, x_init)
+    dev = kernels.cuda_device(An_raw, "normal_newton")
+    with torch.cuda.device(dev):     # the stream's device is current
+        if An_raw.dim() != 3 or An_raw.shape[1] != An_raw.shape[2]:
+            raise ValueError(f"An_raw has shape {tuple(An_raw.shape)}, "
+                             "expected (B, C, C)")
+        B, n = An_raw.shape[:2]
+        if An_raw.dtype != torch.float32:
+            raise TypeError(f"An_raw has dtype {An_raw.dtype}, expected "
+                            "torch.float32")
+        act_mask, rhs, x_init = (t.contiguous()
+                                 for t in (act_mask, rhs, x_init))
+        for name, t, dt in (("act_mask", act_mask, torch.bool),
+                            ("rhs", rhs, torch.float32),
+                            ("x_init", x_init, torch.float32)):
+            kernels.require(t, name, dt, (B, n), dev)
+        lib = kernels.build_kernels()
+        in_shared, most = normal_newton_limits(dev)
+        if n > most:
+            raise ValueError(
+                f"normal_newton: {n} contact rows; the kernel's factor "
+                f"fits shared memory up to {most} rows")
+        out = torch.empty((B, n), dtype=torch.float32, device=dev)
+        # above in_shared rows An_raw on the mask's rows waits in a copy
+        # that the kernel writes once (in L2) instead of shared memory
+        scratch = (None if n <= in_shared else torch.empty(
+            (B, n * n), dtype=torch.float32, device=dev))
+        sB, sI, sJ = An_raw.stride()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gsw_normal_newton(
+            An_raw.data_ptr(), sB, sI, sJ, act_mask.data_ptr(),
+            rhs.data_ptr(), x_init.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            B, n, NEWTON_ITERS, NEWTON_REFINES, stream)
+        kernels.check(lib, rc, "normal_newton")
+        kernels.launch_counts["normal_newton"] += 1
+        return out
 
 
 def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
@@ -651,53 +765,26 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
         return torch.where(act_mask[..., None], torch.cat([ln, lt], dim=-1),
                            0.0)
 
-    def tikhonov(Am, eye):
-        return (Am + 1e-3 * torch.diag_embed(torch.diagonal(Am, dim1=-2,
-                                                            dim2=-1))
-                + 1e-9 * eye)
-
-    def masked(Am, m):
-        """Rows and columns outside ``m`` replaced by the identity."""
-        return (torch.where(m[:, :, None] & m[:, None, :], Am, 0.0)
-                + torch.diag_embed((~m).to(Am.dtype)))
-
     # ---- exact normal presolve --------------------------------------- #
     # Matrix-free Jacobi cannot bridge extreme mass ratios: a PD-driven
     # finger squeezing a 4 g can forms a heavy-light-heavy sandwich whose
     # force transmission needs O(m_link/m_can) sweeps.  The contact count
     # is small and static, so the normal LCP is solved on the normal block
-    # of W with a few active-set Newton steps: batched dense (C, C)
-    # solves.  The Jacobi loop then only polishes friction and the
-    # normal/friction coupling.
-    # Tikhonov regularization keeps the masked solve well-posed (rows on
-    # a sandwiched body are redundant); its compliance bias is removed by
-    # iterative refinement against the unregularized matrix.
+    # of W with a few active-set Newton steps (``normal_newton``: dense
+    # (C, C) solves).  The Jacobi loop then only polishes friction and
+    # the normal/friction coupling.
     An_raw = W5[:, :, 0, :, 0]
-    An = tikhonov(An_raw, st.eye_c)
     if sp.friction_stage in ("qp", "pgs"):
         At_raw = W5[:, :, 1:, :, 1:].reshape(B, 2 * nC, 2 * nC)
-        At = tikhonov(At_raw, st.eye_2c)
+        At = _tikhonov(At_raw, st.eye_2c)
 
-    def normal_newton(lam_f, x_init):
-        """Semismooth (min-map) Newton on min(x, w) = 0: solve w = 0 on
-        the active set, then switch act <- {x > w}.  ``lam_f`` (B, C, 2):
-        friction impulses folded into the free velocity, so normals and
-        friction stagger to a consistent pair."""
+    def newton(lam_f, x_init):
+        """``normal_newton`` with the friction impulses ``lam_f`` (B, C,
+        2) folded into the free velocity, so normals and friction stagger
+        to a consistent pair."""
         lam_nf = torch.cat([torch.zeros_like(lam_f[..., :1]), lam_f], dim=-1)
         rhs = vel_after(lam_nf)[..., 0] - b                   # w = An x + rhs
-        x = x_init.clamp_min(0.0)
-        act = act_mask & ((x > 0.0) | (rhs < 0.0))
-        for _ in range(7):
-            fac = _Factor(masked(An, act))
-            A_raw = masked(An_raw, act)
-            rhs_m = torch.where(act, rhs, 0.0)
-            x = fac.solve(-rhs_m)
-            for _ in range(2):  # refine away the Tikhonov compliance bias
-                x = x - fac.solve(_matvec(A_raw, x) + rhs_m)
-            x = torch.where(act, x, 0.0)                      # unclamped on act
-            w = _matvec(An_raw, x) + rhs
-            act = act_mask & (x > w)
-        return torch.where(act, x, 0.0).clamp_min(0.0)
+        return normal_newton(An_raw, act_mask, rhs, x_init)
 
     # ---- exact friction solves (experiments; the main path runs "off") #
     def friction_rhs(x_n):
@@ -719,8 +806,8 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
             at_lo = y <= -lim2 * (1.0 - 1e-5)
             free = okr & ~((at_hi & (g <= 0.0)) | (at_lo & (g >= 0.0)))
             y_b = torch.where(free, 0.0, torch.where(okr, y, 0.0))
-            fac = _Factor(masked(At, free))
-            A_raw = masked(At_raw, free)
+            fac = _Factor(_masked(At, free))
+            A_raw = _masked(At_raw, free)
             rr = torch.where(free, r_t + _matvec(At_raw, y_b), 0.0)
             yf = fac.solve(-rr)
             yf = yf - fac.solve(_matvec(A_raw, yf) + rr)
@@ -741,13 +828,13 @@ def _solve_contacts(scene: PhysicsScene, kin, contacts: C.ContactSet,
             y = torch.where(okr, y, 0.0)
         return y.reshape(B, nC, 2)
 
-    x = normal_newton(lam0[..., 1:], lam0[..., 0])
+    x = newton(lam0[..., 1:], lam0[..., 0])
     if sp.friction_stage == "qp":
         y = friction_qp(x, lam0[..., 1:])
-        x = normal_newton(y, x)
+        x = newton(y, x)
     elif sp.friction_stage == "pgs":
         y = friction_pgs(x, lam0[..., 1:])
-        x = normal_newton(y, x)
+        x = newton(y, x)
     elif sp.friction_stage == "off":
         y = lam0[..., 1:]       # friction is left to the polish
     else:

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the render and training paths, their
-plain PyTorch versions, the build, and launch counts.
+plain PyTorch versions, and their wrappers; the build, the C interface
+and the launch counts are ``utils/kernels.py``'s.
 
   * ``emit_entries``    <- gsworld_tpu/render/rasterize_pallas.py:_emit_kernel
                            (csrc/emit.cu)
@@ -10,8 +11,6 @@ plain PyTorch versions, the build, and launch counts.
   * ``sum_entry_rows``  <- the scatter-add after it in composite_bwd_pallas
                            (csrc/entry_rows.cu; an XLA scatter in JAX, not
                            a Pallas kernel)
-  * ``gsw_stamp``       <- none: the device stamps of utils/profiling.py
-                           (csrc/stamp.cu)
   * ``project_posed``   <- none: the render's preprocess, repose +
                            projection + SH colour + tint, which JAX leaves
                            to XLA (csrc/project.cu)
@@ -19,25 +18,9 @@ plain PyTorch versions, the build, and launch counts.
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (the CPU tests), a CUDA tensor launches the kernel or raises.
 Nothing on the CUDA path falls back to the plain version.
-
-Build: at first use the sources in ``csrc/`` are compiled with ``nvcc``
-for ``sm_90a``, one process per source, all started together, and
-linked into one shared library with a plain C interface under
-``_build/`` (listed in .gitignore), named by a hash of the sources, the
-headers and the flags, and bound with ctypes.  Each C entry returns
-``cudaGetLastError()`` after its launches.
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Optional
 
 import numpy as np
 import torch
@@ -45,18 +28,11 @@ import torch
 from gsworld_tpu_torch.core.maths import matrix_to_quat
 from gsworld_tpu_torch.gs.transform import repose_scene
 from gsworld_tpu_torch.render.project import Projected, project_frames
-from gsworld_tpu_torch.utils.profiling import counters
-
-_PKG_DIR = Path(__file__).resolve().parent.parent
-CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("emit.cu", "composite.cu", "composite_bwd.cu", "entry_rows.cu",
-           "stamp.cu", "project.cu")
-# --fmad=false: every f32 product rounds on its own, as in the plain
-# PyTorch versions, so kernel and plain version agree to the last bits
-# (the alpha cull's threshold compare is the sensitive one)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# launch_counts and reset_launch_counts are also read from here by the
+# render's callers
+from gsworld_tpu_torch.utils.kernels import (build_kernels, check,
+                                             cuda_device, launch_counts,
+                                             require, reset_launch_counts)
 
 ALPHA_MIN = 1.0 / 255.0
 LOG_ALPHA_MIN = float(np.log(np.float32(ALPHA_MIN)))
@@ -64,137 +40,6 @@ ALPHA_MAX = 0.99
 T_EPS = 1e-4
 COLOR_MAX = 4.0   # colours clamp to [0, COLOR_MAX] (the JAX record range)
 PLAIN_CHUNK = 64  # entries per step of the plain compositor
-
-# launches of each kernel since the last reset (the counter registry's
-# ``kernel_launches`` group); the plain versions do not count
-launch_counts = counters.group("kernel_launches", (
-    "emit_entries", "composite_tiles", "composite_bwd", "sum_entry_rows",
-    "project_posed"))
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
-class _Library:
-    """The loaded kernel library (one per process)."""
-
-    lib: Optional[ctypes.CDLL] = None
-    build_log: str = ""
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
-def compile_library(sources, defines=()) -> Path:
-    """Compile the CUDA ``sources`` (paths; headers beside them) with
-    NVCC_FLAGS and a ``-D`` for each of ``defines``, one ``nvcc -c`` per
-    source, all started together, and link them into one shared library
-    under ``_build/``, unless a build of the same sources, headers and
-    flags is there.  -> its path."""
-    sources = [Path(p) for p in sources]
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    h = hashlib.sha256(" ".join(flags).encode())
-    for path in sources + sorted({q for p in sources
-                                  for q in p.parent.glob("*.cuh")}):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    so_path = BUILD_DIR / f"libgsw_kernels_{h.hexdigest()[:16]}.so"
-    if so_path.exists():
-        return so_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, f"{i}_{p.stem}.o")
-                for i, p in enumerate(sources)]
-        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, str(p)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for p, o in zip(sources, objs)]
-        _Library.build_log = "".join(proc.communicate()[0] for proc in procs)
-        rcs = [proc.returncode for proc in procs]
-        lib = os.path.join(tmp, "lib.so")
-        if not any(rcs):
-            link = subprocess.run([nvcc, *flags[:2], "-shared", "-o", lib,
-                                   *objs], capture_output=True, text=True)
-            _Library.build_log += link.stdout + link.stderr
-            rcs.append(link.returncode)
-        if any(rcs):
-            raise RuntimeError(f"nvcc failed ({rcs}):\n"
-                               + _Library.build_log)
-        os.replace(lib, so_path)
-    return so_path
-
-
-def bind_emit(lib: ctypes.CDLL):
-    """Declare the C interface of csrc/emit.cu on a loaded library."""
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gsw_emit_entries.argtypes = [P] * 8 + [I] * 7 + [Fl, P]
-    lib.gsw_emit_entries.restype = I
-    lib.gsw_error_string.argtypes = [I]
-    lib.gsw_error_string.restype = ctypes.c_char_p
-
-
-def build_kernels() -> ctypes.CDLL:
-    """Compile (if not already built) and load the kernel library."""
-    if _Library.lib is not None:
-        return _Library.lib
-    lib = ctypes.CDLL(str(compile_library([CSRC_DIR / n for n in SOURCES])))
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    bind_emit(lib)
-    lib.gsw_composite_tiles.argtypes = [P] * 11 + [I] * 8 + [Fl] * 5 + [P]
-    lib.gsw_composite_tiles.restype = I
-    lib.gsw_composite_bwd_parts.argtypes = [I]
-    lib.gsw_composite_bwd_parts.restype = I
-    lib.gsw_composite_bwd.argtypes = [P] * 7 + [I] * 8 + [Fl, P]
-    lib.gsw_composite_bwd.restype = I
-    lib.gsw_sum_entry_rows.argtypes = [P] * 5 + [I] * 3 + [P]
-    lib.gsw_sum_entry_rows.restype = I
-    lib.gsw_stamp.argtypes = [P, I, I, P]
-    lib.gsw_stamp.restype = I
-    lib.gsw_stamp_on_flag.argtypes = [P, P, I, I, ctypes.c_longlong, P]
-    lib.gsw_stamp_on_flag.restype = I
-    lib.gsw_project_posed.argtypes = [P] * 23 + [I] * 9 + [Fl, P]
-    lib.gsw_project_posed.restype = I
-    _Library.lib = lib
-    return lib
-
-
-def build_log() -> str:
-    """nvcc's output (ptxas register / shared-memory report) of the build
-    made in this process, empty when the library was already built."""
-    return _Library.build_log
-
-
-def _check(lib, rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.gsw_error_string(rc).decode()} ({rc})")
-
-
-def _require(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: tensors on {t.device} are not supported "
-                         "(CPU takes the plain version, CUDA the kernel)")
-    return t.device
 
 
 # --------------------------------------------------------------------- #
@@ -301,7 +146,7 @@ def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
     queue it many times back to back.  ``lib`` is another build of
     csrc/emit.cu to launch from (the instrumented one of
     tools/emit_times.py)."""
-    dev = _cuda_device(ends, "emit_entries")
+    dev = cuda_device(ends, "emit_entries")
     F, N = ends.shape
     i32, f32 = torch.int32, torch.float32
     for name, t, dt, shp in (
@@ -309,7 +154,7 @@ def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
             ("mean2d", mean2d, f32, (F, N, 2)),
             ("conic", conic, f32, (F, N, 3)),
             ("opacity", opacity, f32, (F, N)), ("depth", depth, f32, (F, N))):
-        _require(t, name, dt, shp, dev)
+        require(t, name, dt, shp, dev)
     if F * (T + 1) >= 2 ** 31:
         raise ValueError("frame/tile key does not fit 32 bits")
     if gx >= 2 ** 16 or T >= gx * 2 ** 15:
@@ -330,7 +175,7 @@ def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
 
     def launch():
         with torch.cuda.device(dev):     # the stream's device is current
-            _check(lib, lib.gsw_emit_entries(*args), "emit_entries")
+            check(lib, lib.gsw_emit_entries(*args), "emit_entries")
         launch_counts["emit_entries"] += 1
 
     return launch, keys, gid
@@ -625,7 +470,7 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
             width=width, height=height, tile=tile, bg=bg) + (
                 pack_records_reference(starts, gaussian, mean2d, conic,
                                        opacity, color, semantics),)
-    dev = _cuda_device(mean2d, "composite_tiles")
+    dev = cuda_device(mean2d, "composite_tiles")
     with torch.cuda.device(dev):     # the stream's device is current
         F, N = opacity.shape
         T = starts.shape[1] - 1
@@ -642,9 +487,9 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
                 ("conic", conic, f32, (F, N, 3)),
                 ("opacity", opacity, f32, (F, N)),
                 ("color", color, f32, (F, N, 3))):
-            _require(t, name, dt, shp, dev)
+            require(t, name, dt, shp, dev)
         if semantics is not None:
-            _require(semantics, "semantics", i32, (N,), dev)
+            require(semantics, "semantics", i32, (N,), dev)
         lib = build_kernels()
         rec = torch.empty((F, E, RECORD_FIELDS), dtype=f32, device=dev)
         img = torch.empty((F, height, width, 3), dtype=f32, device=dev)
@@ -661,7 +506,7 @@ def composite_tiles(starts, gaussian, mean2d, conic, opacity, color,
             F, N, E, T, gx, tile, width, height,
             float(bg[0]), float(bg[1]), float(bg[2]), COLOR_MAX, LOG_ALPHA_MIN,
             stream)
-        _check(lib, rc, "composite_tiles")
+        check(lib, rc, "composite_tiles")
         launch_counts["composite_tiles"] += 1
         return img, T_img, seg, rec
 
@@ -778,7 +623,7 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
         return composite_bwd_reference(
             starts, gaussian, mean2d, conic, opacity, color, img, T_img,
             img_ct, T_ct, width=width, height=height, tile=tile)
-    dev = _cuda_device(mean2d, "composite_bwd")
+    dev = cuda_device(mean2d, "composite_bwd")
     with torch.cuda.device(dev):     # the stream's device is current
         F, N = opacity.shape
         T = starts.shape[1] - 1
@@ -799,8 +644,8 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
                 ("T_img", T_img, f32, (F, height, width)),
                 ("img_ct", img_ct, f32, (F, height, width, 3)),
                 ("T_ct", T_ct, f32, (F, height, width))):
-            _require(t, name, dt, shp, dev)
-        _require(records, "records", f32, (F, E, RECORD_FIELDS), dev)
+            require(t, name, dt, shp, dev)
+        require(records, "records", f32, (F, E, RECORD_FIELDS), dev)
         lib = build_kernels()
         S = lib.gsw_composite_bwd_parts(tile)     # sub-tiles per tile
         parts = torch.zeros((F, S, E, BWD_FIELDS), dtype=f32, device=dev)
@@ -810,7 +655,7 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
             T_img.data_ptr(), img_ct.data_ptr(), T_ct.data_ptr(),
             parts.data_ptr(), F, E, S, T, gx, tile, width, height,
             LOG_ALPHA_MIN, stream)
-        _check(lib, rc, "composite_bwd")
+        check(lib, rc, "composite_bwd")
         launch_counts["composite_bwd"] += 1
         out = parts[:, 0]
         for q in range(1, S):
@@ -857,15 +702,15 @@ def sum_entry_rows(rows, perm, ends):
     launch of csrc/entry_rows.cu; on the CPU the plain version."""
     if rows.device.type == "cpu":
         return sum_entry_rows_reference(rows, perm, ends)
-    dev = _cuda_device(rows, "sum_entry_rows")
+    dev = cuda_device(rows, "sum_entry_rows")
     with torch.cuda.device(dev):     # the stream's device is current
         F, E, K = rows.shape
         N = ends.shape[1]
         if K != BWD_FIELDS:
             raise ValueError(f"rows have {K} fields, expected {BWD_FIELDS}")
-        _require(rows, "rows", torch.float32, (F, E, K), dev)
-        _require(perm, "perm", torch.int64, (F, E), dev)
-        _require(ends, "ends", torch.int32, (F, N), dev)
+        require(rows, "rows", torch.float32, (F, E, K), dev)
+        require(perm, "perm", torch.int64, (F, E), dev)
+        require(ends, "ends", torch.int32, (F, N), dev)
         if E >= 2 ** 31:
             raise ValueError("slot indices do not fit the kernel's int32")
         lib = build_kernels()
@@ -875,7 +720,7 @@ def sum_entry_rows(rows, perm, ends):
         rc = lib.gsw_sum_entry_rows(rows.data_ptr(), perm.data_ptr(),
                                     ends.data_ptr(), pos.data_ptr(),
                                     out.data_ptr(), F, N, E, stream)
-        _check(lib, rc, "sum_entry_rows")
+        check(lib, rc, "sum_entry_rows")
         launch_counts["sum_entry_rows"] += 1
         return out
 
@@ -917,7 +762,7 @@ def project_posed(scene, slots, cams, cfg, tint=None):
         raise ValueError(f"sh_degree {cfg.sh_degree} is not in 0..3")
     if scene.means.device.type == "cpu":
         return project_posed_reference(scene, slots, cams, cfg, tint)
-    dev = _cuda_device(scene.means, "project_posed")
+    dev = cuda_device(scene.means, "project_posed")
     with torch.cuda.device(dev):     # the stream's device is current
         B, C = cams.world_view.shape[:2]
         N = scene.num_gaussians
@@ -949,7 +794,7 @@ def project_posed(scene, slots, cams, cfg, tint=None):
         if tint is not None:
             checks.append(("tint", tint, f32, (B, S, 3)))
         for name, t, dt, shp in checks:
-            _require(t, name, dt, shp, dev)
+            require(t, name, dt, shp, dev)
         lib = build_kernels()
         F = B * C
         out = Projected(
@@ -972,6 +817,6 @@ def project_posed(scene, slots, cams, cfg, tint=None):
             *(x.data_ptr() for x in out), B, C, N, S, cfg.width,
             cfg.height, cfg.tile, cfg.max_tiles_per_gaussian,
             (cfg.sh_degree + 1) ** 2 - 1, float(cfg.znear_cull), stream)
-        _check(lib, rc, "project_posed")
+        check(lib, rc, "project_posed")
         launch_counts["project_posed"] += 1
         return out

@@ -141,9 +141,10 @@ def block_phases(rc, a, tag):
     """Per-block phase times of one launch of the instrumented build."""
     import numpy as np
     import torch
-    lib = ctypes.CDLL(str(rc.compile_library(
-        [rc.CSRC_DIR / "emit.cu"], defines=("GSW_EMIT_STAMPS",))))
-    rc.bind_emit(lib)
+    from gsworld_tpu_torch.utils import kernels
+    lib = ctypes.CDLL(str(kernels.compile_library(
+        [kernels.CSRC_DIR / "emit.cu"], defines=("GSW_EMIT_STAMPS",))))
+    kernels.bind_emit(lib)
     lib.gsw_emit_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     launch = rc.emit_entries_launcher(**a, lib=lib)[0]
     launch()

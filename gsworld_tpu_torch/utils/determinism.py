@@ -15,9 +15,9 @@ forward and backward, and names:
     reflect pads' backwards (the SSIM blur was a convolution after a
     replicate pad).
 
-The port's own kernels (``render/rasterize_cuda.py``, called through
-ctypes) are not aten ops: what they add and in which order is written in
-their sources (``csrc/``).
+The port's own kernels (``csrc/``, bound in ``utils/kernels.py`` and
+called through ctypes) are not aten ops: what they add and in which
+order is written in their sources.
 """
 
 from __future__ import annotations

@@ -98,7 +98,7 @@ class StepTimer:
 
 class Counters:
     """Integer counters by group.  ``group(name)`` is the group's own
-    plain dict (``render/rasterize_cuda.launch_counts`` is the
+    plain dict (``utils/kernels.launch_counts`` is the
     ``kernel_launches`` group); ``snapshot()`` flattens every group into
     ``{"<group>/<key>": n}``."""
 
@@ -525,11 +525,11 @@ def stamp(tag: str, device) -> None:
     if device.type != "cuda":
         return
     import torch
-    from gsworld_tpu_torch.render import rasterize_cuda as rc
-    lib = rc.build_kernels()
+    from gsworld_tpu_torch.utils import kernels
+    lib = kernels.build_kernels()
     with torch.cuda.device(device):
         ring = stamp_ring(device)
-        rc._check(lib, lib.gsw_stamp(
+        kernels.check(lib, lib.gsw_stamp(
             ring.data_ptr(), _TAG_INDEX[tag], RING_SLOTS,
             torch.cuda.current_stream(device).cuda_stream), "stamp")
 
@@ -539,11 +539,11 @@ def stamp_on_flag(tag: str, device) -> None:
     (``_flag()``) is set, or ANCHOR_TIMEOUT_NS; raises where the flag
     cannot be mapped into the card's address space."""
     import torch
-    from gsworld_tpu_torch.render import rasterize_cuda as rc
-    lib = rc.build_kernels()
+    from gsworld_tpu_torch.utils import kernels
+    lib = kernels.build_kernels()
     _flag()
     with torch.cuda.device(device):
-        rc._check(lib, lib.gsw_stamp_on_flag(
+        kernels.check(lib, lib.gsw_stamp_on_flag(
             stamp_ring(device).data_ptr(), _State.pinned.data_ptr(),
             _TAG_INDEX[tag], RING_SLOTS, ANCHOR_TIMEOUT_NS,
             torch.cuda.current_stream(device).cuda_stream), "stamp on flag")

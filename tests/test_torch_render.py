@@ -336,7 +336,8 @@ class TestCompositor:
                                                 "composite_tiles": 0,
                                                 "composite_bwd": 0,
                                                 "sum_entry_rows": 0,
-                                                "project_posed": 0}
+                                                "project_posed": 0,
+                                                "normal_newton": 0}
 
 
 class TestVsGolden:
