@@ -9,8 +9,8 @@ full size, then the end-effector control modes, the other six tasks, the
 xArm closed loop with domain randomization, the closed loop on merged
 real-scan PLYs, the real2sim toolchain, scripted demo collection
 (rollout.run_with_gs), the env axis split into shards (dist) and the
-bench raster's fidelity against its uncapped render, then the port's
-bench (gsworld_tpu_torch.tools.bench), and reports their speed.
+bench raster's fidelity against its uncapped render, and reports their
+speed.
 
     python3 chip_smoke.py
 
@@ -221,16 +221,9 @@ Phases (each prints a line; any failure exits non-zero before a result):
               entries the bench render dropped and those its D cap shrank;
               emit and compositor vs plain on env 0's 2 frames of the
               first state at the lifted shape (phase 3's gates)
-  10. bench   gsworld_tpu_torch.tools.bench's main in process with its
-              defaults: the 1-env (10 steps), 64-env (3 steps) and 4-env
-              headline rows in bench.py's format and order, each logged
-              as "phase 10 bench: {...}", then its smoke preset's row; all
-              present with a finite value > 0; each row's ms per step
-              beside phase 6c's scanned loop; where more than one card is
-              visible, the BENCH_SHARD=1 headline too
 The lines before the JSON lines repeat the train, render-step, physics,
-closed-loop, EE-mode, xArm-loop, scan-loop, real2sim, demo, shard,
-fidelity and bench lines; the
+closed-loop, EE-mode, xArm-loop, scan-loop, real2sim, demo, shard and
+fidelity lines; the
 second-to-last line is the kernels JSON, the last the device JSON.  Long
 outputs (profile, ptxas report) go to OUT_DIR, the git-ignored output
 directory of the checkout.
@@ -1438,9 +1431,9 @@ def train_run(setup, graph):
     from gsworld_tpu_torch.real2sim.pipeline import train_from_colmap_model
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.train3dgs.loss import psnr
-    from gsworld_tpu_torch.train3dgs.train import (DensifyGraph,
-                                                   TrainStepGraph,
-                                                   render_trainable)
+    from gsworld_tpu_torch.train3dgs.train import render_trainable
+    from gsworld_tpu_torch.utils import profiling
+    from gsworld_tpu_torch.utils.cuda_graph import FnGraph
 
     what = "train (graph)" if graph else "train (eager)"
     cams, images = setup.split()
@@ -1467,28 +1460,20 @@ def train_run(setup, graph):
             prof.stop()
         clock[0] = time.perf_counter()
 
-    calls = [0]
-    replay = TrainStepGraph.__call__
-
-    def counted(self, *a):
-        calls[0] += 1
-        return replay(self, *a)
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rc.reset_launch_counts()
-    TrainStepGraph.__call__ = counted
-    try:
-        with counted_calls(DensifyGraph) as densify_calls:
-            clock[0] = t0 = time.perf_counter()
-            scene, losses = train_from_colmap_model(
-                setup.points, setup.colors, cams, images, setup.cfg,
-                params=train_params(), iterations=TRAIN_ITERS,
-                capacity=setup.capacity, seed=SEED, device=setup.device,
-                callback=on_step, graph=graph)
-            wall = time.perf_counter() - t0
-    finally:
-        TrainStepGraph.__call__ = replay
+    before = profiling.counters.snapshot()
+    clock[0] = t0 = time.perf_counter()
+    scene, losses = train_from_colmap_model(
+        setup.points, setup.colors, cams, images, setup.cfg,
+        params=train_params(), iterations=TRAIN_ITERS,
+        capacity=setup.capacity, seed=SEED, device=setup.device,
+        callback=on_step, graph=graph)
+    wall = time.perf_counter() - t0
+    replays = profiling.since(before, profiling.counters.snapshot())
+    calls = replays.get("graph.replays/the train step", 0)
+    densify_calls = replays.get("graph.replays/the densify pass", 0)
     counts = dict(rc.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
@@ -1508,18 +1493,18 @@ def train_run(setup, graph):
     if len(densified_at) != 3 or all(n == setup.n for n in alive):
         raise AssertionError(f"{what}: densify ran at {densified_at}, "
                              f"expected 3 passes that change the alive count")
-    want = TrainStepGraph.WARMUP + 1 if graph else TRAIN_ITERS
+    want = FnGraph.WARMUP + 1 if graph else TRAIN_ITERS
     for name, n in counts.items():
         if n != (0 if name in RENDER_ONLY_KERNELS + PHYSICS_KERNELS
                  else want):
             raise AssertionError(f"{what}: kernel {name} launched {n} times "
                                  f"from the host in {TRAIN_ITERS} iterations "
                                  f"(want {want})")
-    if calls[0] != (TRAIN_ITERS if graph else 0) or densify_calls[0] != (
+    if calls != (TRAIN_ITERS if graph else 0) or densify_calls != (
             len(densified_at) if graph else 0):
-        raise AssertionError(f"{what}: the train-step graph was called "
-                             f"{calls[0]} times in {TRAIN_ITERS} iterations, "
-                             f"the densify graph {densify_calls[0]} times "
+        raise AssertionError(f"{what}: the train-step graph replayed "
+                             f"{calls} times in {TRAIN_ITERS} iterations, "
+                             f"the densify graph {densify_calls} times "
                              f"for {len(densified_at)} passes")
     prof_text, per = None, None
     if graph:
@@ -1534,8 +1519,8 @@ def train_run(setup, graph):
     ms = [1000.0 * dt for dt, skip in step_s[5:] if not skip]
     return dict(scene=scene, losses=losses, counts=counts, peak=peak,
                 psnr=hold_psnr, wall=wall, ms=ms, first=first, last=last,
-                densified_at=densified_at, replays=calls[0],
-                densify_replays=densify_calls[0],
+                densified_at=densified_at, replays=calls,
+                densify_replays=densify_calls,
                 prof_text=prof_text, per_replay=per)
 
 
@@ -1681,8 +1666,8 @@ def train_step_graph_vs_eager(setup, scene):
     bit the first eager step's -> line."""
     import torch
     from gsworld_tpu_torch.gs.model import SCENE_FIELDS
-    from gsworld_tpu_torch.train3dgs.train import (_clone_train_state,
-                                                   make_train_step)
+    from gsworld_tpu_torch.train3dgs.train import make_train_step
+    from gsworld_tpu_torch.utils.cuda_graph import clone_tree
     cams, images = setup.split()
     params = train_params()
     base, _, _ = make_train_step(setup.cfg, params, graph=False)(
@@ -1690,7 +1675,7 @@ def train_step_graph_vs_eager(setup, scene):
     outs = []
     for graph in (False, False, True):
         train_step = make_train_step(setup.cfg, params, graph=graph)
-        st, loss, img = train_step(_clone_train_state(base), cams[1],
+        st, loss, img = train_step(clone_tree(base), cams[1],
                                    images[1])
         torch.cuda.synchronize()
         fields = {f: getattr(st.scene, f) for f in SCENE_FIELDS
@@ -1780,7 +1765,7 @@ def train_audit(setup, scene):
 
 
 def densify_graph_vs_eager(setup, scene):
-    """One densify pass through its CUDA graph (``DensifyGraph``) against
+    """One densify pass through its CUDA graph (``densify_graph``) against
     the eager pass, from one state (the trained scene at its capacity
     after one eager train step, whose statistics ask for clones and
     splits) with the same split noise: every scene field, the densify
@@ -1789,11 +1774,10 @@ def densify_graph_vs_eager(setup, scene):
     import torch
     from gsworld_tpu_torch.train3dgs.densify import densify_and_prune
     from gsworld_tpu_torch.train3dgs.optim import zero_rows
-    from gsworld_tpu_torch.train3dgs.train import (DensifyGraph,
-                                                   _clone_train_state,
-                                                   _write_state,
+    from gsworld_tpu_torch.train3dgs.train import (_write_state,
+                                                   densify_graph,
                                                    make_train_step)
-    from gsworld_tpu_torch.utils.cuda_graph import tree_map
+    from gsworld_tpu_torch.utils.cuda_graph import clone_tree, tree_map
     cams, images = setup.split()
     params = train_params()
     base, _, _ = make_train_step(setup.cfg, params, graph=False)(
@@ -1803,8 +1787,8 @@ def densify_graph_vs_eager(setup, scene):
               percent_dense=params.percent_dense,
               scene_extent=float(np.linalg.norm(
                   pts.max(0) - pts.min(0)) / 2.0) or 1.0)
-    eager, graphed = _clone_train_state(base), _clone_train_state(base)
-    g = DensifyGraph(graphed, **kw)
+    eager, graphed = clone_tree(base), clone_tree(base)
+    g = densify_graph(graphed, **kw)
     gens = [torch.Generator(device=setup.device).manual_seed(SEED + 31)
             for _ in range(2)]
 
@@ -1816,7 +1800,10 @@ def densify_graph_vs_eager(setup, scene):
 
     alive0 = int(base.ds.alive.sum())
     t_e, _ = step_ms(eager_pass)
-    t_g, _ = step_ms(lambda: g(graphed, gens[1]))
+    means = graphed.scene.means
+    t_g, _ = step_ms(lambda: g(graphed, torch.randn(
+        means.shape, generator=gens[1], dtype=means.dtype,
+        device=means.device)))
     leaves = []
     tree_map(leaves.append, (eager, graphed))
     n = len(leaves) // 2
@@ -1995,7 +1982,7 @@ def env_graph_vs_eager(B, what, **kw):
     graphed.reset(seed=SEED + 3)
     graph_steps_vs_eager(graphed.step, eager.step, actions, what,
                          lambda: graphed.state, lambda: eager.state)
-    if graphed._step_graph is None:
+    if "step" not in graphed._graphs:
         raise AssertionError(f"{what}: stepped without a captured graph")
     return eager, graphed, actions
 
@@ -2076,7 +2063,7 @@ def phase_physics():
         for graph in (False, True):
             res[graph] = physics_steps(B, graph)
         env = res[True][0]
-        if env._step_graph is None:
+        if "step" not in env._graphs:
             raise AssertionError("physics: graph=True stepped without a "
                                  "captured graph")
         rows = contact_row_count(env.scene)
@@ -2191,7 +2178,7 @@ def phase_closed_loop():
     with no host read between steps)."""
     import gc
     import torch
-    lines, counts4, scan4, scanned = [], None, None, {}
+    lines, counts4, scan4 = [], None, None
     for B, steps in ((NUM_ENVS, LOOP_STEPS), (1, LOOP_STEPS),
                      (64, LOOP_STEPS_64)):
         t0 = time.perf_counter()
@@ -2200,7 +2187,6 @@ def phase_closed_loop():
                                          steps)
         scan_ms, scan_text, scan_counts = scanned_loop(
             wrapper, f"scanned loop B={B}", steps)
-        scanned[B] = scan_ms
         cam = env.cameras[0]
         line = (f"phase 6c closed loop, {B} envs x {len(env.cameras)} cams "
                 f"{cam.width}x{cam.height}, {steps} steps: {text}; "
@@ -2245,7 +2231,6 @@ def phase_closed_loop():
             log(line)
             lines.append(line)
     scan4["reset_per_replay"] = reset4
-    scan4["scanned_ms"] = scanned
     return counts4, scan4, lines
 
 
@@ -2254,9 +2239,9 @@ def graphs_reserved(env, wrapper):
     step, reset and render graphs are all captured, the cache's free
     blocks released."""
     import torch
-    if wrapper._reset_graph is None:
+    if "reset" not in wrapper._graphs:
         wrapper.reset(seed=SEED)
-    if wrapper._step_graph is None:
+    if "step" not in wrapper._graphs:
         wrapper.step(env.action_space_sample())
     wrapper.render_current_step()
     torch.cuda.synchronize()
@@ -2330,7 +2315,7 @@ def phase_ee_modes():
     for mode in EE_MODES:
         res = {g: physics_steps(NUM_ENVS, g, control_mode=mode)
                for g in (False, True)}
-        if res[True][0]._step_graph is None:
+        if "step" not in res[True][0]._graphs:
             raise AssertionError(f"{mode}: stepped without a captured graph")
         parts = []
         for graph, name in ((False, "eager"), (True, "graph")):
@@ -2452,7 +2437,7 @@ def phase_tasks():
                 raise AssertionError(f"{env_id}: task state {k} card "
                                      f"{c.tolist()} CPU {v.tolist()}")
             task[k] = err
-        if card._step_graph is None:
+        if "step" not in card._graphs:
             raise AssertionError(f"{env_id}: no captured graph on the card")
         line = (f"phase 6d task {env_id}, {NUM_ENVS} envs: reset(seed) card "
                 f"== CPU bit for bit (a_pos, a_quat, qpos, root_pos); after "
@@ -2785,16 +2770,16 @@ def scan_kernels(wrapper, what):
     (``_step_and_render`` from the window's start state) -> (text,
     {kernel name: kernels per replay} as the profiler counted them)."""
     import torch
-    from gsworld_tpu_torch.envs.base import _clone_state
     from gsworld_tpu_torch.rollout.random_actions import scan_steps
+    from gsworld_tpu_torch.utils.cuda_graph import clone_tree
     env, n = wrapper.env, SCAN_PROFILE_STEPS
     cam = env.cameras[0].name
     acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 13),
                                    steps=n)
-    start = _clone_state(env.state)
+    start = clone_tree(env.state)
 
     def eager_frames():
-        s, frames = _clone_state(start), []
+        s, frames = clone_tree(start), []
         for a in acts:
             s, obs, *_ = wrapper._step_and_render(s, a)
             frames.append(obs["sensor_data"][cam]["rgb"][0])
@@ -2824,14 +2809,14 @@ def step_kernels(wrapper, what, n=SCAN_PROFILE_STEPS):
     ``newton_per_step`` normal_newton kernels per step, no copy to the
     host; the env's state is restored after them -> text."""
     import torch
-    from gsworld_tpu_torch.envs.base import _clone_state
+    from gsworld_tpu_torch.utils import cuda_graph
     env = wrapper.env
-    if not env._graphed():
+    if not cuda_graph.graphed(env.graph, env.device):
         raise AssertionError(f"{what}: the env does not step through a "
                              f"graph")
     acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 19),
                                    steps=n)
-    saved = _clone_state(env.state)
+    saved = cuda_graph.clone_tree(env.state)
     text, _, _ = replay_kernels(lambda: [wrapper.step(a) for a in acts], n,
                                 f"steps through the graph ({what})",
                                 names=step_replay_kernels(env))
@@ -2856,10 +2841,19 @@ def leaves_differ(a, b):
                   or not torch.equal(a[k], b[k].to(a[k].device)))
 
 
+def state_leaves(state):
+    """{path: tensor} of an EnvState's tensors."""
+    w = state.world
+    out = {f"world.{f.name}": getattr(w, f.name)
+           for f in dataclasses.fields(w) if getattr(w, f.name) is not None}
+    out.update(elapsed=state.elapsed, prev_target=state.prev_target)
+    out.update({f"task.{k}": v for k, v in state.task.items()})
+    return out
+
+
 def state_differ(a, b):
     """Paths of two EnvStates' tensors that are not equal bit for bit."""
-    from gsworld_tpu_torch.envs.base import _state_tensors
-    return leaves_differ(dict(_state_tensors(a)), dict(_state_tensors(b)))
+    return leaves_differ(state_leaves(a), state_leaves(b))
 
 
 def graph_steps_vs_eager(step_g, step_e, actions, what, state_g, state_e):
@@ -2907,14 +2901,13 @@ def scanned_loop(wrapper, what, steps):
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.rollout.random_actions import (SCAN_REPS,
                                                           rollout_fps)
-    from gsworld_tpu_torch.envs.base import StepGraph
     from gsworld_tpu_torch.utils.cuda_graph import FnGraph
     env = wrapper.env
     cam = env.cameras[0]
     # the captures the reset and the first scanned step make, if not made
-    step_made = wrapper._step_graph is not None
-    want = ((0 if wrapper._reset_graph is not None else FnGraph.WARMUP + 1)
-            + (0 if step_made else StepGraph.WARMUP + 1))
+    step_made = "step" in wrapper._graphs
+    want = ((0 if "reset" in wrapper._graphs else FnGraph.WARMUP + 1)
+            + (0 if step_made else FnGraph.WARMUP + 1))
     before = {}
 
     def timed_start():
@@ -2934,7 +2927,7 @@ def scanned_loop(wrapper, what, steps):
     # the physics runs in the step graph's captures only
     wants = dict.fromkeys(RENDER_KERNELS, want)
     wants["normal_newton"] = newton_per_step(env) * (
-        0 if step_made else StepGraph.WARMUP + 1)
+        0 if step_made else FnGraph.WARMUP + 1)
     for name, w in wants.items():
         if before[name] != w or rc.launch_counts[name]:
             raise AssertionError(
@@ -2960,10 +2953,10 @@ def wrapper_graph_vs_eager(wrapper, actions, what):
     ``actions`` (``graph_steps_vs_eager``); the env is left at the graph
     run's state -> (graph ms, eager ms per step, the eager steps'
     outputs, the eager run's last state)."""
-    from gsworld_tpu_torch.envs.base import _clone_state
+    from gsworld_tpu_torch.utils.cuda_graph import clone_tree
     env = wrapper.env
     graph0 = env.graph
-    states = {False: _clone_state(env.state), True: env.state}
+    states = {False: clone_tree(env.state), True: env.state}
     eager = []
 
     def step(graph, a):
@@ -2996,27 +2989,27 @@ def graph_vs_eager(wrapper, what, tint=False):
     against their plain versions on the frames of the state after one
     graph step (tinted by its task's colours with ``tint``) -> text."""
     import torch
-    from gsworld_tpu_torch.envs.base import _clone_state
     from gsworld_tpu_torch.rollout.random_actions import scan_steps
+    from gsworld_tpu_torch.utils.cuda_graph import clone_tree
     from gsworld_tpu_torch.wrapper.gs_env import world_poses
     env, n = wrapper.env, SCAN_CHECK_STEPS
     acts = env.action_space_sample(torch.Generator().manual_seed(SEED + 17),
                                    steps=n)
     wrapper.reset(seed=SEED)
-    s0 = _clone_state(env.state)
+    s0 = clone_tree(env.state)
     ms_g, ms_e, eager, s_eager = wrapper_graph_vs_eager(wrapper, acts, what)
     g = wrapper.step_graph(acts[0])
-    g.load(s0)
+    g.load(s0, None)
     bad = []
     for i, a in enumerate(acts):
-        g.replay(a)
-        for c, d in g.obs["sensor_data"].items():
+        g.load(None, a)
+        g.replay()
+        for c, d in g.outputs[1]["sensor_data"].items():
             bad += [f"replay {i + 1} {c} {k}" for k, v in d.items()
                     if not torch.equal(v, eager[i][0]["sensor_data"][c][k])]
-    bad += [f"replays: {k}" for k in state_differ(g.state_clone(),
-                                                  s_eager)]
+    bad += [f"replays: {k}" for k in state_differ(g.inputs[0], s_eager)]
     cam = env.cameras[0].name
-    frames, means = scan_steps(wrapper, acts, state=_clone_state(s0))
+    frames, means = scan_steps(wrapper, acts, state=clone_tree(s0))
     rgbs = [e[0]["sensor_data"][cam]["rgb"] for e in eager]
     if not torch.equal(frames, torch.stack([r[0] for r in rgbs])):
         bad.append("scan_steps frames")
@@ -3026,9 +3019,9 @@ def graph_vs_eager(wrapper, what, tint=False):
     if bad:
         raise AssertionError(f"{what}: scanned and eager differ: {bad[:8]} "
                              f"({len(bad)} fields)")
-    g.load(s0)
-    g.replay(acts[0])
-    st = g.state_clone()
+    g.load(s0, acts[0])
+    g.replay()
+    st = clone_tree(g.inputs[0])
     poses = world_poses(st.world, st.task)
     phase_kernels(wrapper.renderer, poses, phase="6c" if not tint else "6d",
                   tint=(wrapper.renderer.slot_tint(poses.obj_color)
@@ -3058,7 +3051,6 @@ def reset_render_vs_eager(wrapper, what):
     render replay by the profiler, and no physics kernel -> (text,
     {kernel name: kernels per reset replay})."""
     import torch
-    from gsworld_tpu_torch.envs.base import _state_tensors
     env, r = wrapper.env, wrapper.renderer
     graph0 = env.graph
     ms, bad, prev = {}, [], []
@@ -3071,7 +3063,7 @@ def reset_render_vs_eager(wrapper, what):
         if isinstance(out, tuple):          # reset: (obs, info), the state
             out = out[0]
             leaves = {f"state/{k}": v.clone()
-                      for k, v in _state_tensors(env.state)}
+                      for k, v in state_leaves(env.state).items()}
         if isinstance(out, torch.Tensor):   # render(): the rgb
             out = {"rgb": out}
         return dict(obs_leaves(out), overflow=r.last_overflow.clone(),
@@ -3304,9 +3296,8 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.render.rasterize import render as gs_render
     from gsworld_tpu_torch.train3dgs.loss import psnr
-    from gsworld_tpu_torch.train3dgs.train import (DensifyGraph,
-                                                   TrainStepGraph,
-                                                   render_trainable)
+    from gsworld_tpu_torch.train3dgs.train import render_trainable
+    from gsworld_tpu_torch.utils.cuda_graph import FnGraph
     from gsworld_tpu_torch.wrapper.gs_env import world_poses
 
     stages = {}
@@ -3368,12 +3359,11 @@ def phase_real2sim(tmp, asset_dir, psnr5=None, device="cuda"):
     # from the host, the TRAIN_ITERS replays do not (phase 5 counts the
     # train path's kernels once per replay by the profiler)
     for name in TRAIN_KERNELS:
-        if train_counts[name] != TrainStepGraph.WARMUP + 1:
+        if train_counts[name] != FnGraph.WARMUP + 1:
             raise AssertionError(f"7b train: {name} launched "
                                  f"{train_counts[name]} times from the "
                                  f"host in {TRAIN_ITERS} iterations (want "
-                                 f"{TrainStepGraph.WARMUP + 1}: one "
-                                 f"capture)")
+                                 f"{FnGraph.WARMUP + 1}: one capture)")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("7b train: a loss is not finite")
     bad = {f: int((~torch.isfinite(getattr(scan, f))).reshape(
@@ -3684,7 +3674,6 @@ def collect_task(env_id, cfg_name, out_dir):
     """8a: one ``run_with_gs.collect`` episode of ``env_id`` at 640x480 x
     2 cameras on the full synthetic scene -> (result dict, wrapper)."""
     import torch
-    from gsworld_tpu_torch.envs.base import StepGraph
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.rollout.run_with_gs import collect
     from gsworld_tpu_torch.utils.cuda_graph import FnGraph
@@ -3721,11 +3710,11 @@ def collect_task(env_id, cfg_name, out_dir):
     renders = steps + probes.resets
     # the resets and steps replay the wrapper's graphs: the host counters
     # see their captures (the warm-up calls and the capture itself)
-    if steps and wrapper._step_graph is None:
+    if steps and "step" not in wrapper._graphs:
         raise AssertionError(f"8a {env_id}: stepped without the graph")
-    if wrapper._reset_graph is None:
+    if "reset" not in wrapper._graphs:
         raise AssertionError(f"8a {env_id}: reset without the graph")
-    captured = FnGraph.WARMUP + 1 + (StepGraph.WARMUP + 1 if steps else 0)
+    captured = (FnGraph.WARMUP + 1) * (2 if steps else 1)
     for name in RENDER_KERNELS:
         if counts[name] != captured:
             raise AssertionError(f"8a {env_id}: {name} launched "
@@ -3810,7 +3799,7 @@ def phase_demo_replay(results, wrappers):
         with counted_calls(FnGraph) as calls:
             frames = replay_h5(wrapper, res["h5"])
         dt = time.perf_counter() - t0
-        if calls[0] != len(frames) or not wrapper.renderer._render_graphs:
+        if calls[0] != len(frames) or not wrapper.renderer._graphs:
             raise AssertionError(f"8b {env_id}: {calls[0]} render-graph "
                                  f"calls for {len(frames)} frames")
         want = res["frames"][1:]
@@ -4146,7 +4135,7 @@ def shard_vs_unsharded(env, wrapper, mesh):
     reset_u, _ = wrapper.reset(seed=SEED)
     reset_s, _ = loop.reset(seed=SEED)
     # every shard reset through its wrapper's reset graph
-    if not all(sh._reset_graph is not None for sh in loop.shards):
+    if not all("reset" in sh._graphs for sh in loop.shards):
         raise AssertionError("9a: a shard reset without its graph")
     reset_differ, reset_err, reset_agree = obs_vs_unsharded(reset_u,
                                                             reset_s)
@@ -4269,9 +4258,10 @@ def shard_scan_vs_unsharded(env, wrapper, mesh):
     t_u, f_u = step_ms(lambda: scan_steps(wrapper, acts)[0])
     t_s, f_s = step_ms(lambda: loop.scan_steps(acts)[0])
     env0_err = int((f_u.int() - f_s.to(f_u.device).int()).abs().max())
-    graphs = [sh._step_graph for sh in loop.shards]
-    sd_u = wrapper._step_graph.obs["sensor_data"]
-    sd_s = M.gather_env_axis([g.obs["sensor_data"] for g in graphs],
+    # each step graph's outputs: (state, obs, reward, terminated, ...)
+    graphs = [sh._graphs["step"] for sh in loop.shards]
+    sd_u = wrapper._graphs["step"].outputs[1]["sensor_data"]
+    sd_s = M.gather_env_axis([g.outputs[1]["sensor_data"] for g in graphs],
                              mesh[0])
     rgb_err, seg_agree = env0_err, []
     for c in sd_u:
@@ -4288,8 +4278,8 @@ def shard_scan_vs_unsharded(env, wrapper, mesh):
     if bad:
         raise AssertionError(f"9a scanned: WorldState after {SHARD_STEPS} "
                              f"steps differs beyond {SHARD_STATE_TOL}: {bad}")
-    mean_err = abs(float(M.mean_across_envs([g.reward for g in graphs]))
-                   - float(wrapper._step_graph.reward.mean()))
+    mean_err = abs(float(M.mean_across_envs([g.outputs[2] for g in graphs]))
+                   - float(wrapper._graphs["step"].outputs[2].mean()))
     if mean_err > SHARD_MEAN_TOL:
         raise AssertionError(f"9a scanned: mean_across_envs of the reward "
                              f"differs by {mean_err:.3g}")
@@ -4440,90 +4430,6 @@ def phase_fidelity():
     return lines
 
 
-# ---------------------------------------------------------------------- #
-# Phase 10: the port's bench
-# ---------------------------------------------------------------------- #
-
-
-def bench_rows(argv=(), env=None):
-    """``gsworld_tpu_torch.tools.bench.main(argv)`` in this process with
-    the BENCH_* variables ``env`` (and none of the caller's) -> the lines
-    it printed."""
-    import contextlib
-    import io
-    from gsworld_tpu_torch.tools import bench
-    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
-    for k in saved:
-        del os.environ[k]
-    os.environ.update(env or {})
-    out = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            bench.main(list(argv))
-    finally:
-        for k in [k for k in os.environ if k.startswith("BENCH_")]:
-            del os.environ[k]
-        os.environ.update(saved)
-    return out.getvalue().splitlines()
-
-
-def checked_rows(lines, want_envs, what):
-    """The JSON rows among ``lines``, each logged as ``phase 10 bench``;
-    raises unless they are one row per entry of ``want_envs``, in that
-    order, each with a finite value > 0 and bench.py's vs_baseline."""
-    from gsworld_tpu_torch.tools.bench import REFERENCE_SINGLE_ENV_FPS
-    rows = []
-    for text in lines:
-        log(f"phase 10 bench: {text}")
-        if not text.startswith("#"):
-            rows.append(json.loads(text))
-    envs = [int(r["metric"].split(" envs (")[0].rsplit(" ", 1)[1])
-            for r in rows]
-    if envs != list(want_envs) or not all(
-            math.isfinite(r["value"]) and r["value"] > 0
-            and r["vs_baseline"] == round(r["value"]
-                                          / REFERENCE_SINGLE_ENV_FPS, 2)
-            for r in rows):
-        raise AssertionError(f"phase 10 {what}: rows for {envs} envs "
-                             f"(want {list(want_envs)}): {lines}")
-    return rows
-
-
-def phase_bench(scanned_ms):
-    """10: ``python -m gsworld_tpu_torch.tools.bench`` in process with its
-    defaults (the 1-env, 64-env and 4-env rows, bench.py's order), then its
-    smoke preset, and, where more than one card is visible, the headline
-    with BENCH_SHARD=1: every row present with a finite value > 0; each
-    row's ms per step beside phase 6c's scanned loop at that env count
-    (``scanned_ms``: {envs: ms}) -> lines."""
-    import torch
-    t0 = time.perf_counter()
-    rows = checked_rows(bench_rows(), (1, 64, NUM_ENVS), "defaults")
-    smoke = checked_rows(bench_rows(["--preset", "smoke"]), (1,), "smoke")
-    lines = []
-    for r in rows:
-        n = int(r["metric"].split(" envs (")[0].rsplit(" ", 1)[1])
-        ms = 1e3 * n / r["value"]
-        six = scanned_ms.get(n)
-        lines.append(f"phase 10 bench row {n} envs: {r['value']} env-steps/s"
-                     f" = {ms:.3f} ms per step (phase 6c scanned loop: "
-                     + (f"{six:.3f} ms" if six is not None else "not run")
-                     + ")")
-    if torch.cuda.device_count() > 1:
-        shard = checked_rows(bench_rows(env=dict(BENCH_SHARD="1",
-                                                 BENCH_EXTRA_ROWS="0")),
-                             (NUM_ENVS,), "BENCH_SHARD=1")
-        lines.append(f"phase 10 bench BENCH_SHARD=1 headline over "
-                     f"{torch.cuda.device_count()} cards: "
-                     f"{json.dumps(shard[0])}")
-    lines.append(f"phase 10 bench: defaults {[r['value'] for r in rows]} "
-                 f"env-steps/s at 1, 64, {NUM_ENVS} envs, smoke preset "
-                 f"{smoke[0]['value']} ({time.perf_counter() - t0:.1f} s)")
-    for line in lines:
-        log(line)
-    return lines
-
-
 def main(argv=None):
     import argparse
     import torch
@@ -4552,9 +4458,6 @@ def main(argv=None):
                     help="run phases 1, 2, 6c, the xArm loop of 6d and 9a "
                          "only (the closed loops, eager and scanned) and "
                          "print no result line")
-    ap.add_argument("--bench-only", action="store_true",
-                    help="run phases 1, 2 and 10 only (the port's bench "
-                         "rows) and print no result line")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
     phase_device()
@@ -4581,9 +4484,6 @@ def main(argv=None):
         phase_closed_loop()
         phase_xarm_loop()
         phase_shard()
-        return           # a partial run prints no result line
-    if args.bench_only:
-        phase_bench({})
         return           # a partial run prints no result line
     if args.train_only:
         renderer = make_renderer("cuda", NUM_ENVS, BENCH_RASTER, BENCH_SIZES)
@@ -4641,7 +4541,6 @@ def main(argv=None):
     shard_counts, shard_lines = phase_shard()
     shard_lines += phase_fidelity()
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
-    bench_lines = phase_bench(scan_counts["scanned_ms"])
     # launches: the render path's for its kernels, the training path's for
     # its two, the eager closed loop's for the physics' (every path's
     # counts are in the lines below); the closed loop's launches of the
@@ -4686,7 +4585,7 @@ def main(argv=None):
         log(line)
     log(slice_line)
     for line in (physics_lines + loop_lines + ee_lines + xarm_lines
-                 + scans["lines"] + demo_lines + shard_lines + bench_lines):
+                 + scans["lines"] + demo_lines + shard_lines):
         log(line)
     line = json.dumps({"kernels": kernels})
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:

@@ -30,7 +30,8 @@ Subpackage map (module names follow the JAX package):
   train3dgs/ 3DGS training: loss, per-group Adam, densify/prune, trainer
   real2sim/  COLMAP text I/O and SfM, ArUco scale, 3DGS reconstruction,
              the robot's point cloud, Umeyama + ICP, label transfer
-  utils/     env-state checkpoints, the CUDA graph capture, and the
+  utils/     env-state checkpoints, the CUDA graphs (one class, one
+             decision of graph or eager), and the
              recording: host spans, counters and device stamps that
              replay with the graphs (profiling.py)
   tools/     timing and fidelity scripts for the card, and the robot-spec

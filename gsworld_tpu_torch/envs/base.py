@@ -18,15 +18,16 @@ CPU and on the card.  The env's own action generator draws on the CPU as
 well.
 
 On a CUDA device ``step`` replays one CUDA graph of the whole step
-(``StepGraph`` of ``_step_fn``: physics, observation, reward), captured
-at the first step (``graph=True``, the default), as the JAX package runs
-its jitted step.  ``reset`` is split in two: the host layout
-(``_reset_layout``: the draws, the episode, domain randomization and the
-EnvState, built on the CPU and copied to the device once) and the device
-tail (``_reset_tail``: the observation of that state), which a graphed
-env replays as one CUDA graph (``reset_graph``, the JAX package's jitted
-reset).  ``graph=False`` steps and resets eagerly, and on the CPU there
-is nothing to capture and ``graph`` is ignored.
+(an ``FnGraph`` of ``_step_fn`` that carries its state: physics,
+observation, reward), captured at the first step (``graph=True``, the
+default), as the JAX package runs its jitted step.  ``reset`` is split
+in two: the host layout (``_reset_layout``: the draws, the episode,
+domain randomization and the EnvState, built on the CPU and copied to
+the device once) and the device tail (``_reset_tail``: the observation
+of that state), which a graphed env replays as one CUDA graph (the JAX
+package's jitted reset).  ``graph=False`` steps and resets eagerly, and
+on the CPU there is nothing to capture and ``graph`` is ignored
+(``utils.cuda_graph.graphed`` decides).
 """
 
 from __future__ import annotations
@@ -57,9 +58,8 @@ from gsworld_tpu_torch.physics.world import (
     world_state_from_numpy,
     world_state_to_numpy,
 )
-from gsworld_tpu_torch.utils.cuda_graph import FnGraph, capture, clone_tree
-from gsworld_tpu_torch.utils.profiling import (count, host_waits, span,
-                                               stamp)
+from gsworld_tpu_torch.utils import cuda_graph
+from gsworld_tpu_torch.utils.profiling import count, host_waits, span
 
 # SAPIEN camera convention -> OpenCV
 SAPIEN2OPENCV = np.array([
@@ -179,116 +179,10 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, Any]:
                 task={k: v.cpu().numpy() for k, v in state.task.items()})
 
 
-def _state_tensors(state: EnvState):
-    """(name, tensor) of every tensor of ``state``, in a fixed order."""
-    for f in WORLD_FIELDS:
-        v = getattr(state.world, f)
-        if v is not None:
-            yield f"world.{f}", v
-    yield "elapsed", state.elapsed
-    yield "prev_target", state.prev_target
-    for k in sorted(state.task):
-        yield f"task.{k}", state.task[k]
-
-
-def _clone_state(state: EnvState) -> EnvState:
-    return EnvState(
-        world=state.world.replace(**{
-            f: getattr(state.world, f).clone() for f in WORLD_FIELDS
-            if getattr(state.world, f) is not None}),
-        elapsed=state.elapsed.clone(), prev_target=state.prev_target.clone(),
-        task={k: v.clone() for k, v in state.task.items()})
-
-
-def _copy_state(dst: EnvState, src: EnvState):
-    """Copy ``src``'s tensors into ``dst``'s (the same fields and shapes);
-    a tensor that is ``dst``'s own is left as it is."""
-    dst_t, src_t = list(_state_tensors(dst)), list(_state_tensors(src))
-    if [n for n, _ in dst_t] != [n for n, _ in src_t]:
-        raise ValueError(f"state fields {[n for n, _ in src_t]} differ from "
-                         f"{[n for n, _ in dst_t]}")
-    for (_, d), (_, s) in zip(dst_t, src_t):
-        if s is not d:
-            d.copy_(s)
-
-
-class StepGraph:
-    """A whole step captured into one CUDA graph, the counterpart of the
-    JAX package's ``_jit_step``: ``step_fn(state, action) -> (state, obs,
-    reward, terminated, truncated, info)``, an env's ``_step_fn`` or a
-    GS wrapper's ``_step_and_render``.
-
-    Static inputs are the EnvState's tensors (``state``) and the (B, A)
-    ``action``.  The captured step ends by copying its new state into
-    ``state``, so one replay is one step and n replays are n steps.
-    Static outputs, overwritten by every replay: ``state``, ``obs``,
-    ``reward``, ``terminated``, ``truncated`` and ``info`` (and, for a
-    wrapper, its renderer's ``last_overflow``).  Calling the graph loads
-    a state, replays it and returns the step's outputs in tensors of
-    their own, as ``step_fn`` would.  Kernels' host launch counts move at
-    capture only.
-
-    Captured by ``utils.cuda_graph.capture`` (in ``pool`` when given)
-    after WARMUP steps on clones of the state, which fill every lazy cache
-    (a kernel build, the camera constants, the scene tensors) outside the
-    capture and leave the caller's state as it was.  A failed capture
-    raises: nothing falls back to the eager step.  ``end_tag``, when
-    given, is a device stamp (``utils.profiling.stamp``) captured as the
-    body's last operation, after the state copy."""
-
-    WARMUP = 2
-
-    def __init__(self, step_fn, device, state: EnvState, action,
-                 what: str = "the step", pool=None, end_tag=None):
-        self.device = device
-        self.what = what
-        self.state = _clone_state(state)
-        self.action = action.clone()
-
-        def warm():
-            s = _clone_state(state)
-            for _ in range(self.WARMUP):
-                s = step_fn(s, self.action)[0]
-
-        def body():
-            out = step_fn(self.state, self.action)
-            _copy_state(self.state, out[0])
-            if end_tag is not None:
-                stamp(end_tag, device)
-            return out
-
-        with torch.no_grad():
-            self.graph, out = capture(body, warm, device, what, pool=pool)
-        (_, self.obs, self.reward, self.terminated, self.truncated,
-         self.info) = out
-
-    def load(self, state: EnvState):
-        """Make ``state`` the state the next replay steps from."""
-        with span("gsw.step.load"), torch.cuda.device(self.device):
-            _copy_state(self.state, state)
-
-    def replay(self, action):
-        """One step of the loaded state with ``action`` (B, A)."""
-        with torch.cuda.device(self.device):
-            self.action.copy_(action)
-            with span("gsw.step.launch"):
-                self.graph.replay()
-        count("graph.replays", self.what)
-
-    def state_clone(self) -> EnvState:
-        """The state after the last replay, in tensors of its own."""
-        with torch.cuda.device(self.device):
-            return _clone_state(self.state)
-
-    def __call__(self, state: EnvState, action):
-        """One step of ``state`` -> (state, obs, reward, terminated,
-        truncated, info), each in tensors of its own, as ``step_fn``."""
-        self.load(state)
-        self.replay(action)
-        with span("gsw.step.outputs"), torch.cuda.device(self.device):
-            return (_clone_state(self.state), *clone_tree(
-                (self.obs, self.reward, self.terminated, self.truncated,
-                 self.info)))
+# the host spans of a step graph's call (``GsBaseEnv.step`` and
+# ``GSWorldWrapper.step``)
+STEP_SPANS = dict(load="gsw.step.load", launch="gsw.step.launch",
+                  outputs="gsw.step.outputs")
 
 
 class GsBaseEnv:
@@ -352,8 +246,7 @@ class GsBaseEnv:
         self.human_render_cameras: List[CameraSpec] = list(
             self._default_human_render_camera_configs())
         self._cam_consts: Dict[Any, Any] = {}
-        self._step_graph: Optional[StepGraph] = None
-        self._reset_graph: Optional[FnGraph] = None
+        self._graphs: Dict[str, cuda_graph.FnGraph] = {}
         self._graph_pool = None
         self._state: Optional[EnvState] = None
         self._action_gen: Optional[torch.Generator] = None
@@ -705,28 +598,18 @@ class GsBaseEnv:
 
     def _reset_from_draws(self, draws, dr_draws):
         """A reset from its draws: the host layout, then the observation
-        through the reset graph on a graphed env (eagerly otherwise); the
-        env takes the new state -> obs."""
+        through the reset graph (``_reset_tail`` on a static EnvState,
+        captured at the first graphed reset) on a graphed env, eagerly
+        otherwise; the env takes the new state -> obs."""
         state = self._reset_layout(draws, dr_draws)
-        obs = (self.reset_graph(state)(state) if self._graphed()
-               else self._reset_tail(state))
+        if cuda_graph.graphed(self.graph, self.device):
+            obs = cuda_graph.cached_graph(
+                self._graphs, "reset", self._reset_tail, self.device,
+                (state,), "the env reset", pool=self.graph_pool())(state)
+        else:
+            obs = self._reset_tail(state)
         self._state = state
         return obs
-
-    def reset_graph(self, state: EnvState) -> FnGraph:
-        """The device tail of a reset (``_reset_tail``) as one CUDA graph
-        (an ``FnGraph`` on a static EnvState), captured at the first call
-        from ``state``'s layout; a CUDA env only."""
-        if self.device.type != "cuda":
-            raise ValueError(f"the env resets on {self.device}: only a "
-                             f"CUDA env's reset is captured")
-        if self._reset_graph is None:
-            self._reset_graph = self._capture_reset(state)
-        return self._reset_graph
-
-    def _capture_reset(self, state: EnvState) -> FnGraph:
-        return FnGraph(self._reset_tail, self.device, (state,),
-                       "the env reset", pool=self.graph_pool())
 
     def graph_pool(self):
         """The memory pool of the CUDA graphs of this env, its GS wrapper
@@ -754,20 +637,17 @@ class GsBaseEnv:
                 action = action.expand(self.num_envs, -1)
             return action
 
-    def _graphed(self) -> bool:
-        """Whether ``step`` replays a CUDA graph (a CUDA env built with
-        ``graph=True``)."""
-        return self.graph and self.device.type == "cuda"
-
     def step(self, action):
+        """One step; on a graphed env through the step graph (``carry`` of
+        ``_step_fn`` on a static EnvState and action, captured at the
+        first graphed step), whose outputs are tensors of their own, as
+        the eager step's."""
         action = self._as_action(action)
-        if self._graphed():
-            if self._step_graph is None:
-                self._step_graph = StepGraph(self._step_fn, self.device,
-                                             self._state, action,
-                                             "the env step",
-                                             pool=self.graph_pool())
-            out = self._step_graph(self._state, action)
+        if cuda_graph.graphed(self.graph, self.device):
+            out = cuda_graph.cached_graph(
+                self._graphs, "step", cuda_graph.carry(self._step_fn),
+                self.device, (self._state, action), "the env step",
+                pool=self.graph_pool(), spans=STEP_SPANS)(self._state, action)
         else:
             out = self._step_fn(self._state, action)
         (self._state, obs, reward, terminated, truncated, info) = out

@@ -32,7 +32,7 @@ from gsworld_tpu_torch.core.maths import (
 )
 from gsworld_tpu_torch.envs.base import GsBaseEnv
 from gsworld_tpu_torch.physics.ik import ee_pose_fn, solve_ik
-from gsworld_tpu_torch.utils.cuda_graph import FnGraph
+from gsworld_tpu_torch.utils import cuda_graph
 
 
 def _f32(x):
@@ -96,7 +96,7 @@ class MotionPlanningSolver:
         self.print_env_info = print_env_info
         self.gripper_state = self.OPEN
         self._fk = ee_pose_fn(self.model, self.ee_link)
-        self._ik_graph = None
+        self._graphs = {}
         self.elapsed_steps = 0
 
     # -------------------------------------------------------------- #
@@ -119,11 +119,11 @@ class MotionPlanningSolver:
         args = (_f32(target_pos).to(dev)[None],
                 _f32(target_quat).to(dev)[None], q0[None], root_pos[None],
                 root_quat[None])
-        if dev.type == "cuda" and self.base_env.graph:
-            if self._ik_graph is None:
-                self._ik_graph = FnGraph(self._solve, dev, args,
-                                         "the IK solve")
-            q, conv = self._ik_graph(*args)
+        if cuda_graph.graphed(self.base_env.graph, dev):
+            # in a memory pool of its own, not the env's
+            q, conv = cuda_graph.cached_graph(
+                self._graphs, "ik", self._solve, dev, args,
+                "the IK solve")(*args)
         else:
             q, conv = self._solve(*args)
         return q[0], conv[0]

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gsworld_tpu_torch.utils.cuda_graph import FnGraph
+from gsworld_tpu_torch.utils import cuda_graph
 
 
 def make_collision_checker(env, clearance: float = 0.002):
@@ -27,11 +27,12 @@ def make_collision_checker(env, clearance: float = 0.002):
     below the tabletop plane (the first of the scene's planes, unbounded)
     by more than ``clearance``.
 
-    On a graphed CUDA env (``env._graphed()`` at the call) a call replays
-    one CUDA graph per batch size M (an ``FnGraph``, captured at the first
-    call with that M; ``check.graphs`` holds them by M): the batch is
-    copied into the graph's static (M, dof) input and the (M,) output is
-    a tensor of its own.  Otherwise it runs eagerly."""
+    On a graphed CUDA env (``cuda_graph.graphed(env.graph, env.device)``
+    at the call) a call replays one CUDA graph per batch size M (an
+    ``FnGraph``, captured at the first call with that M; ``check.graphs``
+    holds them by M): the batch is copied into the graph's static (M, dof)
+    input and the (M,) output is a tensor of its own.  Otherwise it runs
+    eagerly."""
     from gsworld_tpu_torch.physics import contact as C
     from gsworld_tpu_torch.physics.kinematics import forward_kinematics
 
@@ -67,14 +68,11 @@ def make_collision_checker(env, clearance: float = 0.002):
     def check(qpos_batch, a_pos, a_quat, root_pos, root_quat):
         q = torch.as_tensor(qpos_batch, dtype=torch.float32)
         args = (a_pos, a_quat, root_pos, root_quat)
-        if not env._graphed():
+        if not cuda_graph.graphed(env.graph, dev):
             return collides(q.to(dev), *args)
-        M = q.shape[0]
-        if M not in graphs:
-            graphs[M] = FnGraph(collides, dev, (q.to(dev), *args),
-                                "the collision check",
-                                pool=env.graph_pool())
-        return graphs[M](q, *args)
+        return cuda_graph.cached_graph(
+            graphs, q.shape[0], collides, dev, (q, *args),
+            "the collision check", pool=env.graph_pool())(q, *args)
 
     check.graphs = graphs
     return check

@@ -27,6 +27,8 @@ import time
 import numpy as np
 import torch
 
+from gsworld_tpu_torch.utils import cuda_graph
+
 
 def build(env_id: str, num_envs: int, cfg_name: str, sim_freq: int,
           control_freq: int, width: int, height: int,
@@ -87,17 +89,18 @@ def scan_shards(wrappers, actions):
     (n,) f32, the JAX package's per-step sums of its scanned loop), both
     on the first shard's device; each env is left at its new state.
 
-    On the card each shard replays its wrapper's ``step_graph``: per step
-    one copy of the step's actions into the graph's input and one
-    replay, queued with the shard's device current, one sum of the
-    shard's frames and one copy of the frame into a buffer made before
-    the first step, with no host read or copy to the host before the
-    end.  On the CPU the same steps run eagerly (the plain version of the
-    same function)."""
+    On the card each shard replays its wrapper's ``step_graph``: one load
+    of the shard's state, then per step one copy of the step's actions
+    into the graph's input and one replay, queued with the shard's device
+    current, one sum of the shard's frames and one copy of the frame into
+    a buffer made before the first step, with no host read or copy to the
+    host before the end; each env then takes a clone of its graph's
+    state.  On the CPU the same steps run eagerly (the plain version of
+    the same function)."""
     n = actions[0].shape[0]
     w0 = wrappers[0]
     cam = w0.env.cameras[0].name
-    if w0.env.device.type != "cuda":
+    if not cuda_graph.graphed(True, w0.env.device):
         frames, sums = [], []
         for i in range(n):
             total = 0.0
@@ -114,25 +117,28 @@ def scan_shards(wrappers, actions):
         return frames, (torch.stack(sums) / count).to(torch.float32)
     graphs = [w.step_graph(a[0]) for w, a in zip(wrappers, actions)]
     for w, g in zip(wrappers, graphs):
-        g.load(w.env._state)
-    src = graphs[0].obs["sensor_data"][cam]["rgb"][0]
+        g.load(w.env._state, None)
+    # the graph's outputs: (state, obs, reward, terminated, truncated, info)
+    rgb = [g.outputs[1]["sensor_data"][cam]["rgb"] for g in graphs]
+    src = rgb[0][0]
     frames = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
                          device=src.device)
     sums = [torch.zeros(n, dtype=torch.float64, device=g.device)
             for g in graphs]
     for i in range(n):
         for k, (g, a) in enumerate(zip(graphs, actions)):
-            g.replay(a[i])
-            with torch.cuda.device(g.device):
-                sums[k][i] = g.obs["sensor_data"][cam]["rgb"].sum(
-                    dtype=torch.float64)
+            g.load(None, a[i])
+            g.replay()
+            with cuda_graph.device_guard(g.device):
+                sums[k][i] = rgb[k].sum(dtype=torch.float64)
                 if k == 0:
                     frames[i].copy_(src)
     for w, g in zip(wrappers, graphs):
-        w.env._state = g.state_clone()
+        with cuda_graph.device_guard(g.device):
+            w.env._state = cuda_graph.clone_tree(g.inputs[0])
         w.renderer.last_overflow = w._step_overflow
     count = sum(w.num_envs for w in wrappers) * src.numel()
-    with torch.cuda.device(src.device):
+    with cuda_graph.device_guard(src.device):
         total = sum(s.to(src.device) for s in sums)
         return frames, (total / count).to(torch.float32)
 

@@ -13,7 +13,7 @@ Gaussians are written into dead slots (requests ranked by gradient,
 budgeted by the number of free slots), exactly as the JAX package does.
 Every shape is fixed and nothing is read on the host, as in the JAX
 package's jitted pass, so the pass captures into a CUDA graph
-(``train3dgs/train.py:DensifyGraph``).
+(``train3dgs/train.py:densify_graph``).
 """
 
 from __future__ import annotations

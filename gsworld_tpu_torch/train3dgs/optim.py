@@ -17,7 +17,7 @@ simple).
 The step's bias corrections and learning rates are device scalars
 (``AdamState.scalars``) that ``write_step_scalars`` fills before the
 update, so the update itself (``adam_update``) reads nothing from the
-host and replays from a CUDA graph (``train.TrainStepGraph``).
+host and replays from a CUDA graph (``train.make_train_step``).
 """
 
 from __future__ import annotations

@@ -10,16 +10,18 @@ projected means.  Dead capacity slots carry opacity logit -10 and never
 render.
 
 On the card ``train`` replays one CUDA graph of the train step per
-iteration (``TrainStepGraph``), as the JAX package runs its jitted
-``train_step``, and one CUDA graph of each densify pass
-(``DensifyGraph``), as it runs its jitted ``densify_and_prune``; densify
-and the opacity reset run between replays and write into the train-step
-graph's buffers.
+iteration, as the JAX package runs its jitted ``train_step``, and one
+CUDA graph of each densify pass (``densify_graph``), as it runs its
+jitted ``densify_and_prune``; both are ``utils.cuda_graph.FnGraph``s
+that hold the TrainState they were captured on and update it in place,
+and densify and the opacity reset run between replays and write into
+its tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -47,8 +49,8 @@ from gsworld_tpu_torch.train3dgs.optim import (
     write_step_scalars,
     zero_rows,
 )
-from gsworld_tpu_torch.utils.cuda_graph import capture, device_guard
-from gsworld_tpu_torch.utils.profiling import count, host_waits, span, stamp
+from gsworld_tpu_torch.utils import cuda_graph
+from gsworld_tpu_torch.utils.profiling import host_waits, span, stamp
 
 
 class TrainState(NamedTuple):
@@ -117,127 +119,36 @@ def _make_update(cfg: RasterConfig, params: OptimizationParams):
     return update
 
 
-def _clone_train_state(state: TrainState) -> TrainState:
-    opt = state.opt_state
-    return TrainState(
-        scene=GaussianScene(**{f: getattr(state.scene, f).clone()
-                               for f in SCENE_FIELDS}),
-        ds=DensifyState(*(x.clone() for x in state.ds)),
-        opt_state=AdamState(mu={k: v.clone() for k, v in opt.mu.items()},
-                            nu={k: v.clone() for k, v in opt.nu.items()},
-                            count=opt.count, scalars=opt.scalars.clone()),
-        step=state.step)
+def _held(g: cuda_graph.FnGraph, state: TrainState) -> cuda_graph.FnGraph:
+    """``g``, a graph that holds the TrainState it was captured on as its
+    first input; another state raises ``ValueError``."""
+    if state.scene.means is not g.inputs[0].scene.means:
+        raise ValueError(f"{g.what} serves the train state it was "
+                         f"captured on")
+    return g
 
 
-class TrainStepGraph:
-    """One train step (``_make_update``'s ``update``) captured into one
-    CUDA graph, the counterpart of the JAX package's jitted
-    ``train_step``: the forward (emit and compositor kernels), the loss,
-    ``torch.autograd.grad`` through the backward kernel, the alive mask,
-    Adam and the densify statistics.
-
-    Its static buffers are the tensors of the TrainState it was captured
-    on (scene fields, Adam moments and scalars, densify statistics), which
-    every replay updates in place, and a camera and a target image, which
-    each call copies in.  What changes them outside the graph (densify,
-    an opacity reset, the step's Adam scalars) writes into those tensors.
-    ``loss`` and ``img`` are static outputs, overwritten by every replay;
-    a call returns clones of them.
-
-    Captured by ``utils.cuda_graph.capture``, as ``envs.base.StepGraph``
-    is, after WARMUP steps on a clone of the state (which build the
-    kernels and fill the lazy caches and leave the state as it was).  A
-    failed capture raises: nothing falls back to the eager step."""
-
-    WARMUP = 2
-
-    def __init__(self, update, state: TrainState, cam: GSCamera, target):
-        self.device = state.scene.means.device
-        self.state = state
-        self.cam = GSCamera(*(x.clone() for x in cam))
-        self.target = target.clone()
-
-        def warm():
-            s = _clone_train_state(state)
-            for _ in range(self.WARMUP):
-                s = s._replace(ds=update(s, self.cam, self.target)[0])
-
-        def body():
-            ds, loss, img = update(state, self.cam, self.target)
-            for dst, src in zip(state.ds, ds):
-                dst.copy_(src)
-            return loss, img
-
-        self.graph, (self.loss, self.img) = capture(
-            body, warm, self.device, "the train step")
-
-    def __call__(self, state: TrainState, cam: GSCamera, target):
-        """One step of the state it was captured on against (``cam``,
-        ``target``) -> (densify state, loss, image); the loss and the
-        image in tensors of their own, as the eager step returns them."""
-        if state.scene.means is not self.state.scene.means:
-            raise ValueError("a train-step graph steps the state it was "
-                             "captured on")
-        with torch.cuda.device(self.device):
-            for dst, src in zip(self.cam, cam):
-                dst.copy_(src)
-            self.target.copy_(target)
-            with span("gsw.train.launch"):
-                self.graph.replay()
-            count("graph.replays", "the train step")
-            return self.state.ds, self.loss.clone(), self.img.clone()
-
-
-class DensifyGraph:
+def _densify(state: TrainState, noise, generator=None, **densify_kw):
     """One densify + prune pass with its reset of the rewritten rows' Adam
-    moments, written into the TrainState's own tensors
-    (``densify_and_prune``, ``zero_rows`` and ``_write_state``), captured
-    into one CUDA graph: the counterpart of the JAX package's jitted
-    ``densify_and_prune``.  Its static input is the split noise (N, 3),
-    which each call fills from ``generator`` with the very draw the eager
-    pass makes.  It serves the state it was captured on.
+    moments (``densify_and_prune``, ``zero_rows``), written into the
+    state's own tensors; the split noise is ``noise`` (N, 3), or drawn
+    from ``generator``."""
+    scene, ds, changed = densify_and_prune(state.scene, state.ds, generator,
+                                           noise=noise, **densify_kw)
+    zero_rows(state.opt_state, changed)
+    _write_state(state, scene, ds)
 
-    Captured by ``utils.cuda_graph.capture`` after WARMUP passes on a
-    clone of the state (which leave the state as it was); the capture
-    itself changes nothing, so one call is one pass.  A failed capture
-    raises: nothing falls back to the eager pass."""
 
-    WARMUP = 2
-
-    def __init__(self, state: TrainState, **densify_kw):
-        self.device = state.scene.means.device
-        self.state = state
-        means = state.scene.means
-        self.noise = torch.zeros((means.shape[0], 3), dtype=means.dtype,
-                                 device=self.device)
-
-        def densify(st: TrainState):
-            scene, ds, changed = densify_and_prune(
-                st.scene, st.ds, noise=self.noise, **densify_kw)
-            zero_rows(st.opt_state, changed)
-            _write_state(st, scene, ds)
-
-        def warm():
-            s = _clone_train_state(state)
-            for _ in range(self.WARMUP):
-                densify(s)
-
-        with torch.no_grad():
-            self.graph, _ = capture(lambda: densify(state), warm,
-                                    self.device, "the densify pass")
-
-    def __call__(self, state: TrainState, generator: torch.Generator):
-        """One densify pass of the state it was captured on, its split
-        noise drawn from ``generator``."""
-        if state.scene.means is not self.state.scene.means:
-            raise ValueError("a densify graph densifies the state it was "
-                             "captured on")
-        with device_guard(self.device):
-            self.noise.copy_(torch.randn(
-                self.noise.shape, generator=generator,
-                dtype=self.noise.dtype, device=self.device))
-            self.graph.replay()
-        count("graph.replays", "the densify pass")
+def densify_graph(state: TrainState, **densify_kw) -> cuda_graph.FnGraph:
+    """One densify pass of ``state`` (``_densify``) captured into one CUDA
+    graph, the counterpart of the JAX package's jitted
+    ``densify_and_prune``: ``graph(state, noise)`` copies the split noise
+    (N, 3) into its static one and densifies the state it holds, the one
+    it was captured on."""
+    means = state.scene.means
+    return cuda_graph.FnGraph(
+        functools.partial(_densify, **densify_kw), means.device,
+        (state, torch.zeros_like(means)), "the densify pass")
 
 
 def make_train_step(cfg: RasterConfig, params: OptimizationParams,
@@ -245,23 +156,39 @@ def make_train_step(cfg: RasterConfig, params: OptimizationParams,
     """-> ``train_step(state, cam, target) -> (state, loss, image)``.  The
     step updates the scene fields, the Adam moments and the densify
     statistics in place.  With ``graph`` (the default) and a state on the
-    card, the first call captures the step into a ``TrainStepGraph`` and
-    every call replays it; the loss and image it returns are tensors of
-    their own.  Such a step serves one state: the one of its first call,
-    whose tensors the graph updates (each step returns that state again).
+    card, the first call captures the step into one CUDA graph (the
+    counterpart of the JAX package's jitted ``train_step``: the forward,
+    the loss, the backward kernel, the alive mask, Adam and the densify
+    statistics), which every call replays with its camera and target
+    copied in; the loss and image it returns are tensors of their own.
+    Such a step serves one state: the one of its first call, which the
+    graph holds and updates (each step returns that state again).
     Another state raises ``ValueError``: step it with a new
     ``make_train_step``.  ``graph=False`` and the CPU step eagerly, any
     state."""
     lrs = learning_rates(params)
     update = _make_update(cfg, params)
-    captured = []
+    graphs = []
+
+    def carried(state: TrainState, cam: GSCamera, target):
+        """``update`` writing its densify state into ``state``'s."""
+        with torch.enable_grad():
+            ds, loss, img = update(state, cam, target)
+        cuda_graph.copy_tree(state.ds, ds)
+        return loss, img
 
     def train_step(state: TrainState, cam: GSCamera, target):
         write_step_scalars(state.opt_state, lrs)
-        if graph and state.scene.means.is_cuda:
-            if not captured:
-                captured.append(TrainStepGraph(update, state, cam, target))
-            ds, loss, img = captured[0](state, cam, target)
+        dev = state.scene.means.device
+        if cuda_graph.graphed(graph, dev):
+            if not graphs:
+                graphs.append(cuda_graph.FnGraph(
+                    carried, dev,
+                    (state, *cuda_graph.clone_tree((cam, target))),
+                    "the train step",
+                    spans=dict(launch="gsw.train.launch")))
+            loss, img = _held(graphs[0], state)(state, cam, target)
+            ds = state.ds
         else:
             ds, loss, img = update(state, cam, target)
         state.opt_state.count += 1
@@ -298,9 +225,9 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
     ``callback(it, state, loss, densified)``, when given, runs after
     every iteration.  On the card with ``graph`` (the default) every
     iteration replays one CUDA graph of the train step
-    (``TrainStepGraph``), each densify pass replays one CUDA graph
-    (``DensifyGraph``, captured at the first pass), and densify and the
-    opacity reset write into the train step's buffers between replays;
+    (``make_train_step``), each densify pass replays one CUDA graph
+    (``densify_graph``, captured at the first pass), and densify and the
+    opacity reset write into the state both graphs hold between replays;
     ``graph=False`` steps and densifies eagerly.  Returns (scene,
     densify state, losses)."""
     params = params or OptimizationParams()
@@ -316,7 +243,8 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
     densify_kw = dict(grad_threshold=params.densify_grad_threshold,
                       percent_dense=params.percent_dense,
                       scene_extent=scene_extent)
-    densify_graph = None
+    graphed = cuda_graph.graphed(graph, dev)
+    densify_g = None
 
     losses = []
     for it in range(1, iters + 1):
@@ -329,16 +257,15 @@ def train(scene: GaussianScene, cameras: Sequence[GSCamera], images,
             densified = (params.densify_from_iter <= it
                          <= params.densify_until_iter
                          and it % params.densification_interval == 0)
-            if densified and graph and dev.type == "cuda":
-                if densify_graph is None:
-                    densify_graph = DensifyGraph(state, **densify_kw)
-                densify_graph(state, gen)
+            if densified and graphed:
+                if densify_g is None:
+                    densify_g = densify_graph(state, **densify_kw)
+                means = state.scene.means
+                _held(densify_g, state)(state, torch.randn(
+                    means.shape, generator=gen, dtype=means.dtype,
+                    device=dev))
             elif densified:
-                scene2, ds2, changed = densify_and_prune(
-                    state.scene, state.ds, gen, **densify_kw)
-                # reset the Adam moments of the rows densify rewrote only
-                zero_rows(state.opt_state, changed)
-                _write_state(state, scene2, ds2)
+                _densify(state, None, gen, **densify_kw)
             if it % params.opacity_reset_interval == 0:
                 _write_state(state, reset_opacity(state.scene))
         if log_every and it % log_every == 0:

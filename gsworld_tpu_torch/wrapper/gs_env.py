@@ -32,19 +32,18 @@ Output contract (as the JAX wrapper): per camera, ``rgb`` uint8
 segmentation in ``env.obs_mode`` an int16 ``segmentation`` (B, H, W, 1).
 
 On a CUDA env built with ``graph=True`` (the default), every call
-replays one CUDA graph, as the JAX wrapper runs its jitted programs:
-``GSWorldWrapper.step`` the whole step, physics to render
-(``step_graph``: an ``envs.base.StepGraph`` of ``_step_and_render``,
-``_jit_step``), which the scanned loop
+replays one CUDA graph (a ``utils.cuda_graph.FnGraph``), as the JAX
+wrapper runs its jitted programs: ``GSWorldWrapper.step`` the whole
+step, physics to render (``step_graph``: ``_step_and_render`` carrying
+its state, ``_jit_step``), which the scanned loop
 (``rollout/random_actions.py:scan_steps``) replays too; ``reset`` the
-reset's device tail and the sensor render (``reset_graph``,
-``_jit_reset``) after the env's host layout; ``GSWorldRenderer.render``
-one graph per camera set (``render_graph``: the sensor cameras for
-``render_current_step``, ``_jit_render``, and the human view for
-``render``).  Each is captured at its first call.  A graph cannot be
-replayed inside another's capture, so the captured functions call the
-eager render (``GSWorldRenderer._render``).  A call with
-``raster_config=``, ``graph=False`` and the CPU run eagerly.
+reset's device tail and the sensor render (``_jit_reset``) after the
+env's host layout; ``GSWorldRenderer.render`` one graph per camera set
+(the sensor cameras for ``render_current_step``, ``_jit_render``, and
+the human view for ``render``).  Each is captured at its first call.  A
+graph cannot be replayed inside another's capture, so the captured
+functions call the eager render (``GSWorldRenderer._render``).  A call
+with ``raster_config=``, ``graph=False`` and the CPU run eagerly.
 """
 
 from __future__ import annotations
@@ -61,12 +60,7 @@ from gsworld_tpu_torch.core.maths import (
     tf_from_pq,
     tf_inverse_rigid,
 )
-from gsworld_tpu_torch.envs.base import (  # noqa: F401 (_clone_state)
-    EnvPoses,
-    GsBaseEnv,
-    StepGraph,
-    _clone_state,
-)
+from gsworld_tpu_torch.envs.base import STEP_SPANS, EnvPoses, GsBaseEnv
 from gsworld_tpu_torch.gs.scene_factory import get_scene
 from gsworld_tpu_torch.gs.transform import SlotTransforms, repose_scene
 from gsworld_tpu_torch.physics.kinematics import forward_kinematics
@@ -74,7 +68,7 @@ from gsworld_tpu_torch.physics.spec_io import load_surface_points
 from gsworld_tpu_torch.render.camera import RasterConfig, cam_maniskill2gs
 from gsworld_tpu_torch.render.rasterize import render_projected
 from gsworld_tpu_torch.render.rasterize_cuda import project_posed
-from gsworld_tpu_torch.utils.cuda_graph import FnGraph
+from gsworld_tpu_torch.utils import cuda_graph
 from gsworld_tpu_torch.utils.profiling import span, stamp
 
 
@@ -152,7 +146,7 @@ class GSWorldRenderer:
         self.raster_config = raster_config or RasterConfig(
             width=cam0.width if cam0 else 640,
             height=cam0.height if cam0 else 480)
-        self._render_graphs = {}
+        self._graphs = {}
 
     def slot_transforms(self, link_pos, link_quat, a_pos, a_quat,
                         a_scale=None) -> SlotTransforms:
@@ -252,43 +246,28 @@ class GSWorldRenderer:
         ``raster_config`` replaces the renderer's for this render (another
         D or E at the sensor cameras' size: tools/render_parity.py).  On a
         CUDA env built with ``graph=True`` a render without
-        ``raster_config`` replays the camera set's ``render_graph``; its
-        outputs are tensors of their own, as the eager render's."""
-        if raster_config is None and self.env.graph \
-                and self.device.type == "cuda":
-            result, self.last_overflow = self.render_graph(
-                poses, cameras)(poses)
-            return result
-        return self._render(poses, cameras, raster_config)
-
-    def render_graph(self, poses: EnvPoses, cameras=None) -> FnGraph:
-        """The render through ``cameras`` (default the sensor cameras) as
-        one CUDA graph (an ``FnGraph`` of ``_render`` on static EnvPoses,
-        returning the render and ``last_overflow``), one per camera set and
-        set of pose fields, captured at its first call from ``poses``; a
-        CUDA renderer only.  A replay launches one emit and one compositor
-        kernel."""
-        if self.device.type != "cuda":
-            raise ValueError(f"the renderer draws on {self.device}: only a "
-                             f"CUDA render is captured")
+        ``raster_config`` replays the graph of its camera set and set of
+        pose fields (``_render`` on static EnvPoses, returning the render
+        and ``last_overflow``), captured at its first call; a replay
+        launches one preprocess, emit and compositor kernel.  Its outputs
+        are tensors of their own, as the eager render's."""
+        if raster_config is not None \
+                or not cuda_graph.graphed(self.env.graph, self.device):
+            return self._render(poses, cameras, raster_config)
+        # the env's camera constants keep the cameras, so their ids, alive
         cams = self.env.cameras if cameras is None else cameras
         key = (cameras is None, tuple(map(id, cams)), tuple(
             None if v is None else (tuple(v.shape), v.dtype)
             for v in (getattr(poses, f.name)
                       for f in dataclasses.fields(poses))))
-        hit = self._render_graphs.get(key)
-        if hit is None:
-            hit = self._render_graphs[key] = (
-                self._capture_render(poses, cameras), list(cams))
-        return hit[0]
 
-    def _capture_render(self, poses: EnvPoses, cameras=None) -> FnGraph:
         def fn(p):
-            out = self._render(p, cameras)
-            return out, self.last_overflow
+            return self._render(p, cameras), self.last_overflow
 
-        return FnGraph(fn, self.device, (poses,), "the GS render",
-                       pool=self.env.graph_pool())
+        result, self.last_overflow = cuda_graph.cached_graph(
+            self._graphs, key, fn, self.device, (poses,), "the GS render",
+            pool=self.env.graph_pool())(poses)
+        return result
 
     @torch.no_grad()
     def _render(self, poses: EnvPoses, cameras=None,
@@ -367,8 +346,7 @@ class GSWorldWrapper:
             env, scene_gs_cfg_name, device=device, **self.render_kwargs)
         self.is_real_scene = self.renderer.is_real_scene
         self.raster_config = self.renderer.raster_config
-        self._step_graph: Optional[StepGraph] = None
-        self._reset_graph: Optional[FnGraph] = None
+        self._graphs = {}
 
     def _render_fn(self, state, cameras=None) -> dict:
         """The eager GS render of ``state`` (what the graphs capture)."""
@@ -389,24 +367,29 @@ class GSWorldWrapper:
         obs["sensor_data"] = self._render_fn(state)
         return state, obs, reward, terminated, truncated, info
 
-    def step_graph(self, action) -> StepGraph:
-        """The wrapper's whole step as one CUDA graph (a ``StepGraph`` of
-        ``_step_and_render``), captured at the first call from the env's
-        current state, with ``action``'s shape; a CUDA env only.  A
-        replay launches one emit and one compositor kernel and overwrites
-        the renderer's ``last_overflow``."""
-        if self.env.device.type != "cuda":
-            raise ValueError(f"the env steps on {self.env.device}: only a "
-                             f"CUDA env's step is captured")
-        if self._step_graph is None:
-            self._step_graph = StepGraph(self._step_and_render,
-                                         self.env.device, self.env._state,
-                                         action, "the closed-loop step",
-                                         pool=self.env.graph_pool(),
-                                         end_tag="loop.end")
-            # the render's overflow output of the graph
-            self._step_overflow = self.renderer.last_overflow
-        return self._step_graph
+    def _graph_step(self, state, action):
+        """The step graph's body: ``_step_and_render`` carrying its state
+        (``cuda_graph.carry``), then a stamp of the step's end.  Its last
+        run is the capture, so ``_step_overflow`` is then the graph's
+        output of the render's overflow, which every replay rewrites."""
+        out = cuda_graph.carry(self._step_and_render)(state, action)
+        self._step_overflow = self.renderer.last_overflow
+        stamp("loop.end", self.env.device)
+        return out
+
+    def step_graph(self, action) -> cuda_graph.FnGraph:
+        """The wrapper's whole step as one CUDA graph, ``graph(state,
+        action) -> (state, obs, reward, terminated, truncated, info)``:
+        ``_graph_step`` on a static EnvState and action (``inputs``),
+        captured at the first call from the env's current state, with
+        ``action``'s shape; a CUDA env only (else ``ValueError``).  A
+        replay launches one preprocess, emit and compositor kernel; after
+        one ``load`` of a state, n replays are n steps."""
+        env = self.env
+        return cuda_graph.cached_graph(
+            self._graphs, "step", self._graph_step, env.device,
+            (env._state, action), "the closed-loop step",
+            pool=env.graph_pool(), spans=STEP_SPANS)
 
     def _reset_and_render(self, state):
         """The device part of a reset of the laid-out ``state`` and its GS
@@ -420,22 +403,6 @@ class GSWorldWrapper:
         stamp("reset.end", dev)
         return obs, self.renderer.last_overflow
 
-    def reset_graph(self, state) -> FnGraph:
-        """The reset's device tail and the sensor render as one CUDA graph
-        (an ``FnGraph`` of ``_reset_and_render``), captured at the first
-        call from ``state``; a CUDA env only.  A replay launches one emit
-        and one compositor kernel."""
-        if self.env.device.type != "cuda":
-            raise ValueError(f"the env resets on {self.env.device}: only a "
-                             f"CUDA env's reset is captured")
-        if self._reset_graph is None:
-            self._reset_graph = self._capture_reset(state)
-        return self._reset_graph
-
-    def _capture_reset(self, state) -> FnGraph:
-        return FnGraph(self._reset_and_render, self.env.device, (state,),
-                       "the closed-loop reset", pool=self.env.graph_pool())
-
     def reset(self, seed: Optional[int] = None,
               options: Optional[dict] = None):
         seed = 0 if seed is None else seed
@@ -446,15 +413,20 @@ class GSWorldWrapper:
     def _reset_from_draws(self, draws, dr_draws):
         """A reset from its draws: the env's host layout (span
         ``gsw.reset.layout``), then its device tail and the render through
-        the wrapper's reset graph on a graphed env (eagerly otherwise;
-        span ``gsw.reset.launch``); the env takes the new state -> obs."""
+        the wrapper's reset graph (``_reset_and_render`` on a static
+        EnvState, captured at the first graphed reset; a replay launches
+        one preprocess, emit and compositor kernel) on a graphed env,
+        eagerly otherwise (span ``gsw.reset.launch``); the env takes the
+        new state -> obs."""
         env = self.env
         with span("gsw.reset.layout"):
             state = env._reset_layout(draws, dr_draws)
         with span("gsw.reset.launch"):
-            if env._graphed():
-                obs, self.renderer.last_overflow = self.reset_graph(state)(
-                    state)
+            if cuda_graph.graphed(env.graph, env.device):
+                obs, self.renderer.last_overflow = cuda_graph.cached_graph(
+                    self._graphs, "reset", self._reset_and_render,
+                    env.device, (state,), "the closed-loop reset",
+                    pool=env.graph_pool())(state)
             else:
                 obs = self._reset_and_render(state)[0]
         env._state = state
@@ -466,7 +438,7 @@ class GSWorldWrapper:
         outputs are tensors of their own, as the eager step's)."""
         with span("gsw.step"):
             action = self.env._as_action(action)
-            if self.env._graphed():
+            if cuda_graph.graphed(self.env.graph, self.env.device):
                 out = self.step_graph(action)(self.env._state, action)
                 self.renderer.last_overflow = self._step_overflow
             else:

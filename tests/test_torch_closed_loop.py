@@ -33,7 +33,8 @@ from gsworld_tpu_torch.rollout.random_actions import (
     rollout_fps,
     scan_steps,
 )
-from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper, _clone_state
+from gsworld_tpu_torch.utils.cuda_graph import clone_tree
+from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper
 from torch_physics_common import (
     one_torch_thread,  # noqa: F401 (autouse fixture)
     jax_world_to_numpy,
@@ -76,7 +77,7 @@ def loops():
     tenv._state = env_state_from_numpy(dict(
         world=jax_world_to_numpy(js.world), elapsed=np.asarray(js.elapsed),
         prev_target=np.asarray(js.prev_target), task={}), device="cpu")
-    start = _clone_state(tenv.state)
+    start = clone_tree(tenv.state)
     rng = np.random.default_rng(9)
     frames, actions = [], []
     for _ in range(STEPS):
@@ -161,7 +162,7 @@ def test_scan_steps_matches_jax_and_eager(loops):
     cam = tenv.cameras[0].name
     saved = tenv._state
     try:
-        got, means = scan_steps(tw, actions, state=_clone_state(start))
+        got, means = scan_steps(tw, actions, state=clone_tree(start))
         got, means = got.numpy(), means.numpy()
     finally:
         tenv._state = saved

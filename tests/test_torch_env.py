@@ -296,7 +296,7 @@ def test_registry_and_facade():
                      sim_config=dict(sim_freq=100, control_freq=50))
     assert env.scene.substeps == 2 and env.max_episode_steps == 100
     # graph=True is the default and means nothing on the CPU
-    assert env.graph and env._step_graph is None
+    assert env.graph and not env._graphs
     g = torch.Generator().manual_seed(1)
     a1 = env.action_space_sample(g)
     a2 = env.action_space_sample(torch.Generator().manual_seed(1))
@@ -304,7 +304,7 @@ def test_registry_and_facade():
     assert float(a1.min()) >= -1.0 and float(a1.max()) < 1.0
     env.reset(seed=0)
     env.step(a1[0])                       # one action for every env
-    assert env._step_graph is None
+    assert not env._graphs
     assert int(env.state.elapsed[0]) == 1
     base = tenvs.make("RealFr3-v1", num_envs=2, device="cpu")
     obs, _ = base.reset(seed=0)

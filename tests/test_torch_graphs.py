@@ -1,15 +1,19 @@
 """The port's compiled programs on the CPU: the reset split into its host
-layout and its device tail, densify at JAX's fixed shapes, and the CUDA
-graph classes of the render, the resets, the collision check and densify.
+layout and its device tail, densify at JAX's fixed shapes, and every
+CUDA graph of the port (``utils.cuda_graph.FnGraph``): the env and
+closed-loop steps, the scanned loop, the resets, the render, the train
+step, densify, the collision check and the IK solve.
 
-On the CPU nothing captures, so the graph classes are built here with a
+On the CPU nothing captures, so the graphs are built here with a
 stand-in for ``utils.cuda_graph.capture`` (patched in these tests only)
+that captures nothing (it leaves the graph's inputs as they were) and
 whose ``replay()`` runs the captured body again and writes what it
 returns into the capture's outputs, as a replay rewrites a graph's static
-outputs.  Each class then returns the eager results bit for bit, leaves a
-call's outputs as they were after the next call, copies its inputs
-rather than aliasing them, and leaves the caller's inputs as they were.
-Scenes are tiny (2 envs, 160x120).
+outputs; and with ``utils.cuda_graph.graphed`` answering as on a card.
+Each graph then returns the eager results bit for bit, leaves a call's
+outputs as they were after the next call, copies its inputs rather than
+aliasing them, and leaves the caller's inputs as they were.  Scenes are
+tiny (2 envs, 160x120).
 """
 
 import dataclasses
@@ -28,7 +32,7 @@ from gsworld_tpu.gs.model import scene_from_splats as j_scene_from_splats
 from gsworld_tpu.train3dgs import densify as jdensify
 from gsworld_tpu_torch import envs as tenvs
 from gsworld_tpu_torch.core.maths import quat_normalize, quat_rotate
-from gsworld_tpu_torch.envs.base import EnvState, _clone_state
+from gsworld_tpu_torch.envs.base import EnvState
 from gsworld_tpu_torch.gs.model import (
     SCENE_FIELDS,
     GaussianScene,
@@ -40,12 +44,15 @@ from gsworld_tpu_torch.physics.world import (
     WorldState,
     contact_row_count,
 )
-from gsworld_tpu_torch.render.camera import RasterConfig
+from gsworld_tpu_torch.render.camera import RasterConfig, make_camera
+from gsworld_tpu_torch.rollout.planner.motionplanner import (
+    FR3UmiMotionPlanningSolver)
 from gsworld_tpu_torch.rollout.planner.rrt import make_collision_checker
+from gsworld_tpu_torch.rollout.random_actions import scan_steps
 from gsworld_tpu_torch.train3dgs import densify
 from gsworld_tpu_torch.train3dgs import train as ttrain
-from gsworld_tpu_torch.train3dgs.optim import adam_init, zero_rows
-from gsworld_tpu_torch.utils import cuda_graph
+from gsworld_tpu_torch.train3dgs.optim import OptimizationParams, adam_init
+from gsworld_tpu_torch.utils import cuda_graph, profiling
 from gsworld_tpu_torch.wrapper.gs_env import GSWorldWrapper, world_poses
 from torch_physics_common import one_torch_thread  # noqa: F401 (autouse)
 
@@ -84,17 +91,32 @@ class _Replayed:
 
 
 def _stand_in_capture(body, warm, device, what, pool=None):
+    """``body`` is ``fn`` bound to the graph's inputs (a partial): run it
+    for the static outputs, then put the inputs back as they were, as a
+    capture, which runs nothing, leaves them."""
     warm()
+    kept = cuda_graph.clone_tree(body.args)
     out = body()
+    cuda_graph.copy_tree(body.args, kept)
+    profiling.count("graph.captures", what)
     return _Replayed(body, out), out
+
+
+def _graph_where_asked(graph, device):
+    return bool(graph)
 
 
 @pytest.fixture
 def stand_in(monkeypatch):
-    """``utils.cuda_graph.capture`` (and train.py's import of it) replaced
-    by the stand-in."""
+    """``utils.cuda_graph.capture`` replaced by the stand-in, and
+    ``graphed`` answering as on a card: a call asked to replay a graph
+    (``graph``, an env's ``graph``) replays one on the CPU."""
     monkeypatch.setattr(cuda_graph, "capture", _stand_in_capture)
-    monkeypatch.setattr(ttrain, "capture", _stand_in_capture)
+    monkeypatch.setattr(cuda_graph, "graphed", _graph_where_asked)
+
+
+def _refuse_capture(*a, **k):
+    raise AssertionError("a graph was built")
 
 
 def _loop(name, graph=True):
@@ -162,7 +184,7 @@ def test_reset_is_layout_then_tail(name):
     draws = env.reset_draws(7)
     want = _reset_before_split(env, *draws)
     state = env._reset_layout(*draws)
-    kept = _clone_state(state)
+    kept = cuda_graph.clone_tree(state)
     obs = env._reset_tail(state)
     _assert_trees_equal(state, kept)
     _assert_trees_equal((state, obs), want)
@@ -297,7 +319,7 @@ def test_fixed_shape_densify_matches_sliced_and_jax(case):
 
 
 # ---------------------------------------------------------------------- #
-# (c) the graph classes, with the stand-in capture
+# (c) the graphs, with the stand-in capture
 # ---------------------------------------------------------------------- #
 
 
@@ -321,33 +343,198 @@ def _check_graph(call, eager, inputs_k, inputs_next, graph_inputs):
 
 def _two_states(env, wrapper):
     wrapper.reset(seed=1)
-    s0 = _clone_state(env.state)
+    s0 = cuda_graph.clone_tree(env.state)
     wrapper.step(env.action_space_sample())
-    return s0, _clone_state(env.state)
+    return s0, cuda_graph.clone_tree(env.state)
 
 
 @pytest.mark.parametrize("name", sorted(LOOPS))
 def test_render_and_reset_graphs(stand_in, name):
     """The renderer's graphs (sensor cameras and the human view), the
-    env's reset graph and the wrapper's reset graph (device tail and
-    render) against their eager functions (``_check_graph``)."""
+    env's reset graph, the wrapper's reset graph (device tail and render)
+    and the closed-loop step graph, each built by its owner's first call,
+    against their eager functions (``_check_graph``)."""
     env, wrapper = _loop(name)
     r = wrapper.renderer
     s0, s1 = _two_states(env, wrapper)
+    assert sorted(wrapper._graphs) == ["reset", "step"]
     p0, p1 = (world_poses(s.world, s.task) for s in (s0, s1))
     for cams in (None, env.human_render_cameras):
-        g = r._capture_render(p0, cams)
+        n = len(r._graphs)
+        r.render(p0, cameras=cams)
+        assert len(r._graphs) == n + 1
+        g = list(r._graphs.values())[-1]
         _check_graph(g, lambda p: (r._render(p, cams), r.last_overflow),
                      (p0,), (p1,), g.inputs)
-    g = env._capture_reset(s0)
+    env.reset(seed=4)
+    g = env._graphs["reset"]
     _check_graph(g, env._reset_tail, (s0,), (s1,), g.inputs)
-    g = wrapper._capture_reset(s0)
+    g = wrapper._graphs["reset"]
     _check_graph(g, wrapper._reset_and_render, (s0,), (s1,), g.inputs)
     with pytest.raises(ValueError):
         g(p0)                          # another structure is refused
+    g = wrapper.step_graph(None)
+    a0, a1 = (env.action_space_sample() for _ in range(2))
+    _check_graph(g, wrapper._step_and_render, (s0, a0), (s1, a1), g.inputs)
 
 
-def test_collision_check_graphs(stand_in, monkeypatch):
+@pytest.mark.parametrize("name", sorted(LOOPS))
+def test_env_step_graph(stand_in, name):
+    """``env.step`` through the env's step graph against ``graph=False``
+    over 3 steps from one state: everything each step returns and the
+    state after it bit for bit, step k's outputs unchanged by step k + 1;
+    a graphed step replays the graph once inside its load, launch and
+    outputs spans."""
+    env_id, _, kw = LOOPS[name]
+    env = tenvs.make(env_id, num_envs=B, obs_mode="rgb+segmentation",
+                     device="cpu", **kw)
+    env.reset(seed=3)
+    start = cuda_graph.clone_tree(env.state)
+    acts = env.action_space_sample(torch.Generator().manual_seed(5), steps=3)
+    runs = {}
+    for graph in (True, False):
+        env.graph, env._state = graph, cuda_graph.clone_tree(start)
+        outs, kept = [], []
+        for a in acts:
+            outs.append(env.step(a))
+            kept.append(cuda_graph.clone_tree((outs[-1], env.state)))
+        _assert_trees_equal([o for o, _ in kept][:-1], outs[:-1])
+        runs[graph] = kept
+    _assert_trees_equal(runs[True], runs[False])
+    assert sorted(env._graphs) == ["reset", "step"]
+    env.graph = True
+    with profiling.recording() as rec:
+        env.step(acts[0])
+    assert rec.counts() == {"graph.replays/the env step": 1}
+    assert sorted(s.name for s in rec.spans) == [
+        "gsw.step.action", "gsw.step.launch", "gsw.step.load",
+        "gsw.step.outputs"]
+
+
+@pytest.mark.parametrize("name", sorted(LOOPS))
+def test_scanned_replays(stand_in, name):
+    """The scanned loop's form: ``scan_steps`` through the closed-loop
+    step graph (one load of the state, then n replays, each with its
+    action copied in, the state read back with a clone at the end) against
+    the same n steps run eagerly: frames, means and the state left in the
+    env bit for bit, n replays counted."""
+    env, wrapper = _loop(name)
+    wrapper.reset(seed=2)
+    start = cuda_graph.clone_tree(env.state)
+    acts = env.action_space_sample(torch.Generator().manual_seed(8), steps=2)
+    before = profiling.counters.snapshot()
+    got = scan_steps(wrapper, acts, state=cuda_graph.clone_tree(start))
+    moved = profiling.since(before, profiling.counters.snapshot())
+    assert moved["graph.replays/the closed-loop step"] == len(acts)
+    g = wrapper._graphs["step"]
+    assert not {t.data_ptr() for t in _leaves(env.state)} & {
+        t.data_ptr() for t in _leaves(g.inputs)}
+    graphed = cuda_graph.clone_tree(env.state)
+    env.graph = False
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cuda_graph, "graphed", lambda graph, device: False)
+        want = scan_steps(wrapper, acts, state=cuda_graph.clone_tree(start))
+    _assert_trees_equal(got, want)
+    _assert_trees_equal(graphed, env.state)
+
+
+def _train_setup(n_req=40):
+    """A small training problem: the densify case's scene (130 slots, 100
+    alive), a camera on it and a target image at 40x32."""
+    fields, dsf = _densify_case(n_req)
+    w2c = torch.eye(4)
+    w2c[2, 3] = 2.0
+    cam = make_camera(w2c, 0.5, 0.5)
+    target = torch.rand((32, 40, 3), generator=torch.Generator().manual_seed(6))
+    cfg = RasterConfig(width=40, height=32)
+    return fields, dsf, cam, target, cfg
+
+
+def test_train_step_graph(stand_in):
+    """The train step through its graph against the eager step over two
+    iterations, with a densify pass (through its graph on the graphed
+    state) written into the state between them: every tensor of the state,
+    the loss and the image bit for bit; the graph holds the state of its
+    first call, and iteration 1's loss and image survive iteration 2."""
+    fields, dsf, cam, target, cfg = _train_setup()
+    params = OptimizationParams()
+    steps = {g: ttrain.make_train_step(cfg, params, graph=g)
+             for g in (True, False)}
+    states = {g: _train_state(fields, dsf) for g in (True, False)}
+    kw = dict(grad_threshold=1e-9, percent_dense=0.01, scene_extent=3.0)
+    dg = ttrain.densify_graph(states[True], **kw)
+    noise = torch.randn((130, 3), generator=torch.Generator().manual_seed(7))
+    outs = {True: [], False: []}
+    for it in range(2):
+        for g in (True, False):
+            st, loss, img = steps[g](states[g], cam, target)
+            states[g] = st
+            outs[g].append((loss, img))
+        _assert_trees_equal(states[True], states[False])
+        _assert_trees_equal(outs[True][-1], outs[False][-1])
+        if it == 0:
+            kept = cuda_graph.clone_tree(outs[True][0])
+            alive = int(states[True].ds.alive.sum())
+            dg(states[True], noise)
+            ttrain._densify(states[False], noise, **kw)
+            _assert_trees_equal(states[True], states[False])
+            assert int(states[True].ds.alive.sum()) > alive
+    _assert_trees_equal(outs[True][0], kept)
+    assert outs[True][0][0].data_ptr() != outs[True][1][0].data_ptr()
+    assert states[True].scene.means is dg.inputs[0].scene.means
+
+
+def test_train_step_graph_refuses_another_state(stand_in):
+    """A graphed train step serves the state of its first call: another
+    state raises ``ValueError``, its scene, densify state and moments left
+    as they were; so does a densify graph's holder (``_held``)."""
+    fields, dsf, cam, target, cfg = _train_setup()
+    step = ttrain.make_train_step(cfg, OptimizationParams())
+    mine, other = _train_state(fields, dsf), _train_state(fields, dsf)
+    step(mine, cam, target)
+    kept = cuda_graph.clone_tree(other)
+    with pytest.raises(ValueError):
+        step(other, cam, target)
+    _assert_trees_equal((other.scene, other.ds, other.opt_state.mu,
+                         other.opt_state.nu),
+                        (kept.scene, kept.ds, kept.opt_state.mu,
+                         kept.opt_state.nu))
+    dg = ttrain.densify_graph(mine, grad_threshold=2e-4)
+    assert ttrain._held(dg, mine) is dg
+    with pytest.raises(ValueError):
+        ttrain._held(dg, other)
+
+
+def test_ik_graph(stand_in):
+    """The planner's IK through its graph against ``_solve`` for two
+    waypoints: the joint positions and the converged flag bit for bit,
+    the first waypoint's outputs unchanged by the second, one graph (out
+    of the env's pool)."""
+    env, wrapper = _loop("fr3")
+    wrapper.reset(seed=2)
+    planner = FR3UmiMotionPlanningSolver(wrapper)
+    q0, rp, rq = planner._state0()
+    p, q = planner.tcp_pose()
+    targets = [(p + np.float32([0.02, 0.0, -0.01]), q),
+               (p + np.float32([-0.01, 0.03, 0.0]), q)]
+
+    def solve(tp, tq, q_start):
+        args = (torch.as_tensor(tp)[None], torch.as_tensor(tq)[None],
+                q_start[None], rp[None], rq[None])
+        qs, conv = planner._solve(*args)
+        return qs[0], conv[0]
+
+    outs = [planner._ik(tp, tq, q0, rp, rq) for tp, tq in targets]
+    kept = cuda_graph.clone_tree(outs[0])
+    for (tp, tq), out in zip(targets, outs):
+        _assert_trees_equal(out, solve(tp, tq, q0))
+    _assert_trees_equal(outs[0], kept)
+    assert sorted(planner._graphs) == ["ik"]
+    assert planner._graphs["ik"].what == "the IK solve"
+    assert bool(outs[0][1]) and bool(outs[1][1])
+
+
+def test_collision_check_graphs(stand_in):
     """The checker through its graphs (one per batch size, the numpy batch
     copied in) against the eager checker."""
     env, wrapper = _loop("fr3")
@@ -359,9 +546,11 @@ def test_collision_check_graphs(stand_in, monkeypatch):
     lim = env.agent.model.qlimits
     batches = [lim[:, 0] + (lim[:, 1] - lim[:, 0]) * rng.random((m, len(lim)))
                for m in (5, 7, 5)]
+    env.graph = False
     eager = [check(q, *args) for q in batches]
     assert any(e.any() for e in eager) and not all(e.all() for e in eager)
-    monkeypatch.setattr(env, "_graphed", lambda: True)
+    assert not check.graphs
+    env.graph = True
     _check_graph(check, lambda q, *a: eager[0] if q is batches[0]
                  else eager[1], (batches[0], *args), (batches[1], *args), ())
     assert sorted(check.graphs) == [5, 7]
@@ -383,32 +572,26 @@ def _train_state(fields, dsf):
 
 def test_densify_graph(stand_in):
     """The densify graph (densify, the moments' reset and the write into
-    the state's own tensors, the split noise from the generator) against
-    the eager pass on the same state, twice in a row."""
+    the state's own tensors, its static split noise loaded from each
+    call's draw) against the eager pass drawing from the same generator,
+    on the same state, twice in a row; building it leaves the state as it
+    was."""
     fields, dsf = _densify_case(DENSIFY_CASES["exceed"])
     eager, graphed = _train_state(fields, dsf), _train_state(fields, dsf)
     kw = dict(grad_threshold=2e-4, percent_dense=0.01, scene_extent=3.0)
-    # the stand-in runs the body at capture, which a capture does not:
-    # put the state back as it was
-    before = ttrain._clone_train_state(graphed)
-    g = ttrain.DensifyGraph(graphed, **kw)
-    for dst, src in zip(_leaves(graphed), _leaves(before)):
-        dst.copy_(src)
+    g = ttrain.densify_graph(graphed, **kw)
+    _assert_trees_equal(graphed, eager)
     gens = [torch.Generator().manual_seed(11) for _ in range(2)]
     for k in range(2):
-        sc, ds, changed = densify.densify_and_prune(eager.scene, eager.ds,
-                                                    gens[0], **kw)
-        zero_rows(eager.opt_state, changed)
-        ttrain._write_state(eager, sc, ds)
-        g(graphed, gens[1])
+        ttrain._densify(eager, None, gens[0], **kw)
+        g(graphed, torch.randn((130, 3), generator=gens[1]))
         _assert_trees_equal(graphed, eager)
         if k == 0:
             # a grad statistic for the second pass
             for st in (eager, graphed):
                 st.ds.grad_accum[:20] = 5e-3
                 st.ds.denom[:20] = 1.0
-    with pytest.raises(ValueError):
-        g(eager, gens[1])
+    assert g.inputs[0] is graphed
 
 
 # ---------------------------------------------------------------------- #
@@ -418,36 +601,95 @@ def test_densify_graph(stand_in):
 
 @pytest.mark.parametrize("graph", [True, False])
 def test_entry_points_build_no_graph_on_cpu(monkeypatch, graph):
-    """``render_graph`` and both ``reset_graph``s refuse a CPU env with
-    ``ValueError``, as ``step_graph`` does; a CPU env with ``graph`` on or
-    off resets, steps and renders eagerly and builds no graph."""
+    """``step_graph`` refuses a CPU env with ``ValueError``; a CPU env
+    with ``graph`` on or off resets, steps and renders eagerly and builds
+    no graph."""
     env, wrapper = _loop("fr3", graph=graph)
-
-    def refuse(*a, **k):
-        raise AssertionError("a graph was built")
-
-    monkeypatch.setattr(env, "_capture_reset", refuse)
-    monkeypatch.setattr(wrapper, "_capture_reset", refuse)
-    monkeypatch.setattr(wrapper.renderer, "_capture_render", refuse)
+    monkeypatch.setattr(cuda_graph, "capture", _refuse_capture)
     wrapper.reset(seed=0)
     env.reset(seed=0)
     wrapper.step(env.action_space_sample())
     wrapper.render_current_step()
     wrapper.render()
-    make_collision_checker(env)(np.zeros((3, env.agent.model.dof)),
-                                env.state.world.a_pos[0],
-                                env.state.world.a_quat[0],
-                                env.state.world.root_pos[0],
-                                env.state.world.root_quat[0])
-    st = env.state
-    with pytest.raises(ValueError):
-        wrapper.renderer.render_graph(world_poses(st.world, st.task))
-    with pytest.raises(ValueError):
-        wrapper.reset_graph(st)
-    with pytest.raises(ValueError):
-        env.reset_graph(st)
+    check = make_collision_checker(env)
+    check(np.zeros((3, env.agent.model.dof)), env.state.world.a_pos[0],
+          env.state.world.a_quat[0], env.state.world.root_pos[0],
+          env.state.world.root_quat[0])
     with pytest.raises(ValueError):
         wrapper.step_graph(env.action_space_sample())
-    assert env._reset_graph is None and wrapper._reset_graph is None
-    assert not wrapper.renderer._render_graphs
+    assert not (env._graphs or wrapper._graphs or wrapper.renderer._graphs
+                or check.graphs)
     assert env.graph_pool() is None
+
+
+def _entry_env(graph):
+    env = tenvs.make("AlignFr3Env-v1", num_envs=B, device="cpu", graph=graph)
+    env.reset(seed=0)
+    env.step(env.action_space_sample())
+    return env._graphs
+
+
+def _entry_wrapper(graph):
+    env, wrapper = _loop("fr3", graph=graph)
+    wrapper.reset(seed=0)
+    wrapper.step(env.action_space_sample())
+    return wrapper._graphs
+
+
+def _entry_renderer(graph):
+    env, wrapper = _loop("fr3", graph=graph)
+    env.reset(seed=0)
+    wrapper.render_current_step()
+    wrapper.render()
+    return wrapper.renderer._graphs
+
+
+def _entry_train(graph):
+    fields, dsf, cam, target, cfg = _train_setup()
+    built = []
+    real = cuda_graph.FnGraph
+
+    class Counted(real):
+        def __init__(self, *a, **k):
+            built.append(a[3])
+            super().__init__(*a, **k)
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cuda_graph, "FnGraph", Counted)
+        params = OptimizationParams(densify_from_iter=1,
+                                    densification_interval=1,
+                                    densify_grad_threshold=1e-9)
+        ttrain.train(scene_from_numpy(fields, device="cpu"), [cam], [target],
+                     cfg, params, 160, iterations=2, graph=graph)
+    return built
+
+
+def _entry_ik(graph):
+    env = tenvs.make("AlignFr3Env-v1", num_envs=B, device="cpu", graph=graph)
+    env.reset(seed=0)
+    planner = FR3UmiMotionPlanningSolver(env)
+    q0, rp, rq = planner._state0()
+    p, q = planner.tcp_pose()
+    planner._ik(p + np.float32([0.01, 0.0, 0.0]), q, q0, rp, rq)
+    return planner._graphs
+
+
+ENTRY_POINTS = {"env": _entry_env, "wrapper": _entry_wrapper,
+                "renderer": _entry_renderer, "train": _entry_train,
+                "ik": _entry_ik}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_graph_false_builds_no_graph(monkeypatch, entry):
+    """Each entry point (the env's step and reset, the wrapper's step and
+    reset, the renderer, ``train`` with its densify and the planner's IK)
+    builds no graph on the CPU, and none with ``graph=False`` where graphs
+    are asked of the CPU as of a card; with ``graph=True`` there it builds
+    its graphs."""
+    run = ENTRY_POINTS[entry]
+    monkeypatch.setattr(cuda_graph, "capture", _refuse_capture)
+    assert not run(True)
+    monkeypatch.setattr(cuda_graph, "graphed", _graph_where_asked)
+    assert not run(False)
+    monkeypatch.setattr(cuda_graph, "capture", _stand_in_capture)
+    assert run(True)
