@@ -24,18 +24,26 @@ Phases (each prints a line; any failure exits non-zero before a result):
               flips between the two versions are counted and excused.  The
               emit kernel's bound is tens of microseconds, so it is timed
               by launches queued back to back between two events and by
-              the profiler's device duration, beside one wrapper call;
-              the preprocess kernel (csrc/project.cu: repose, projection,
-              SH colour) vs its plain version on the 128 frames of one
-              render step of 64 envs x 2 cameras (radius and rect equal
-              on 99.99% of pairs, depth's inf pattern equal, the floats
-              within 1e-6 relative, colour 1e-5), timed by CUDA events
-              and the profiler beside the plain path and its bound
+              the profiler's device duration, beside one wrapper call and
+              beside the same kernel on slots in Gaussian order; the key
+              sort (csrc/sort_tiles.cu) bit for bit torch.sort of its
+              32-bit keys, and the sorted ids and starts bit for bit the
+              64-bit key sort the port had (SHA-256 of both), its time by
+              the profiler beside its bound and torch.sort of the 64-bit
+              keys; the preprocess kernel (csrc/project.cu: repose,
+              projection, SH colour) vs its plain version on the 128
+              frames of one render step of 64 envs x 2 cameras (radius and
+              rect equal on 99.99% of pairs, depth's inf pattern equal, the
+              floats within 1e-6 relative, colour 1e-5), timed by CUDA events
+              and the profiler beside the plain path and its bound, then
+              the emit kernel and the key sort on those 128 frames, as on
+              the 8
   3b. bwd     the compositor backward kernel and the emit kernel vs their
               plain versions on one 640x480 frame of the phase-5 training
               scene at its capacity, inputs from the training path's
-              projection and binning; the backward twice on one input,
-              bit for bit; the per-Gaussian sum in slot order
+              projection and binning, and the key sort as in phase 3;
+              the backward twice on one input, bit for bit; the
+              per-Gaussian sum in slot order
               (csrc/entry_rows.cu) vs its plain version bit for bit, with
               the times of both and of index_add_, the library call it
               replaced
@@ -268,8 +276,13 @@ TRAIN_ARC_DEG = 120.0
 STEP_TOL = 1e-4         # one train step, card vs CPU, relative to field max
 TRAIN_REPEATS = 2       # phase 5's runs of each form, bit for bit alike
 TRAIN_PROFILE_STEPS = 3  # phase 5's graph replays in the profiler's window
+# the key sort's kernels are CUB's (csrc/sort_tiles.cu), in a namespace of
+# their own; its digit histogram runs once a call
+SORT_NAMESPACE = "gsw::cub::"
 # each wrapper's CUDA kernel, by the name the profiler shows
 KERNEL_NAMES = {"emit_entries": "emit_kernel",
+                "sort_tiles": SORT_NAMESPACE
+                + "DeviceRadixSortHistogramKernel",
                 "composite_tiles": "composite_kernel",
                 "composite_bwd": "composite_bwd_kernel",
                 "sum_entry_rows": "entry_rows_kernel",
@@ -278,12 +291,14 @@ KERNEL_NAMES = {"emit_entries": "emit_kernel",
 TRAIN_KERNELS = ("composite_bwd", "sum_entry_rows")  # the train path's own
 # the render path's (one launch per render); training projects through
 # PyTorch (render/project.py:project_frames), so it launches no preprocess
-RENDER_KERNELS = ("emit_entries", "composite_tiles", "project_posed")
+RENDER_KERNELS = ("emit_entries", "sort_tiles", "composite_tiles",
+                  "project_posed")
 RENDER_ONLY_KERNELS = ("project_posed",)
 PHYSICS_KERNELS = ("normal_newton",)   # the env step's own
 # kernels per replay (by the kernels' names) of a render or reset graph;
 # a step graph's add the physics' (``step_replay_kernels``)
-REPLAY_KERNELS = {"emit_kernel": 1, "composite_kernel": 1,
+REPLAY_KERNELS = {"emit_kernel": 1, KERNEL_NAMES["sort_tiles"]: 1,
+                  "composite_kernel": 1,
                   "project_posed_kernel": 1, "normal_newton_kernel": 0}
 BURST = 50              # launches per window of the back-to-back clock
 PHYS_ENVS = (1, 4, 64)
@@ -706,15 +721,14 @@ def work_line(phase, work, timed):
 
 def emit_bound(cnt, E):
     """Bound of the emit kernel on ``cnt`` (F, N), the kept entries per
-    Gaussian, and E slots per frame: the Gaussians that emit are charged
-    56 bytes (rank, offset, count, rect, mean, conic, opacity, depth: what
-    the thread-per-Gaussian form read; the slot-parallel form reads 48),
-    the others their 4-byte count or offset; every slot's 12-byte key and
-    id is written.  Bytes bind (~50 f32 instructions per kept entry for
-    the box cull are far below)."""
+    depth rank, and E slots per frame: the ranks that emit are charged 52
+    bytes (two ends, the id, rect, mean, conic, opacity), the others their
+    4-byte end; every slot's 8-byte key and id is written.  Bytes bind
+    (~50 f32 instructions per kept entry for the box cull are far
+    below)."""
     F, N = cnt.shape
     emitting = int((cnt > 0).sum())
-    nbytes = emitting * 56 + (F * N - emitting) * 4 + F * E * 12
+    nbytes = emitting * 52 + (F * N - emitting) * 4 + F * E * 8
     return bound_of(50 * int(cnt.sum()), emitting, nbytes)
 
 
@@ -754,22 +768,173 @@ def train_inputs(setup):
 
 
 def entry_counts(ends):
-    """Kept entries per Gaussian (F, N) from the emit kernel's inclusive
+    """Kept entries per depth rank (F, N) from the emit kernel's inclusive
     slot ends."""
     import torch
     ends = ends.long()
     return torch.diff(ends, dim=-1, prepend=torch.zeros_like(ends[:, :1]))
 
 
-def check_emit(phase, what, plan, cfg, timed=True):
-    """Emit kernel vs its plain version on the plan_emit result ``plan``
-    (keys equal except within CULL_BORDER of the cull threshold, ids
-    equal, starts and entry order equal after the sort), a line on what
-    the inputs look like, and its times.  -> (the kernel's entry for the
-    kernels line, sorted Gaussian ids, starts)."""
+def sort_bound(n, bits):
+    """Bound of the key sort on ``n`` keys of ``bits`` bits: one read of
+    the 4-byte keys for the digit histograms, then per 8-bit pass the key
+    and the value read and written, 16 bytes a slot."""
+    nbytes = n * 4 + -(-bits // 8) * n * 16
+    return bound_of(0, 0, nbytes)
+
+
+def parent_sort(keys, gid, depth, T):
+    """The key sort as the port had it before its slots followed the depth
+    ranking, on the card: one stable ``torch.sort`` of the 64-bit keys
+    ``(f (T+1) + tile) << 32 | depth bits`` of the emitted entries (the
+    sentinel's depth bits those of +inf) -> (sorted ids (F, E), starts
+    (F, T+1) int32, the 64-bit keys).  Equal 64-bit keys keep slot order,
+    which is rank order, so this is the parent's answer on any layout
+    whose ranks order equal depths by id."""
+    import torch
+    F, E = keys.shape
+    dbits = torch.gather(depth.contiguous().view(torch.int32), 1,
+                         gid.long().clamp_min(0)).long() & 0xFFFFFFFF
+    dbits = torch.where(gid >= 0, dbits, 0x7F800000)
+    key64 = (keys.long() << 32) | dbits
+    keys_s, perm = torch.sort(key64.reshape(-1), stable=True)
+    fr = torch.arange(F, device=keys.device, dtype=torch.int64)
+    bounds = (fr[:, None] * (T + 1) + torch.arange(
+        T + 1, device=keys.device, dtype=torch.int64)) << 32
+    starts = (torch.searchsorted(keys_s, bounds.reshape(-1)).view(F, T + 1)
+              - fr[:, None] * E).to(torch.int32)
+    return gid.reshape(-1)[perm].view(F, E), starts, key64
+
+
+def binning_digest(gaussian, starts, overflow):
+    """SHA-256 of the sorted ids up to each frame's live count, the starts
+    and the overflow (tools/emit_times.py's digest)."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    T = starts.shape[1] - 1
+    live = starts[:, T].long().tolist()
+    for f, n in enumerate(live):
+        h.update(gaussian[f, :n].cpu().numpy().tobytes())
+    h.update(starts.cpu().numpy().tobytes())
+    h.update(overflow.to(torch.int64).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sort_kernels_ms(launch, k=10):
+    """Profiler device time (ms) per call of ``launch`` summed over the key
+    sort's kernels (csrc/sort_tiles.cu: CUB's in its own namespace): each
+    kernel's mean duration times its launches per call -> (ms or None,
+    {name: (kernels seen, per call)})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(k):
+            launch()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and SORT_NAMESPACE in e.key
+            and e.count]
+    if not hits:
+        return None, {}
+    names, ms = {}, 0.0
+    for e in hits:
+        per_call = max(1, round(e.count / k))
+        name = e.key.split("<")[0].split("::")[-1]
+        names[name] = (e.count, per_call)
+        ms += e.self_device_time_total / e.count * per_call / 1e3
+    return ms, names
+
+
+def check_sort(phase, what, keys, gid, depth, overflow, T, timed=True):
+    """The key sort (csrc/sort_tiles.cu through ``binning.sort_entries``)
+    on the emit kernel's ``keys`` and ``gid`` (F, E): the sorted keys and
+    permutation of ``sort_tiles`` bit for bit those of its plain version
+    (``torch.sort``), and the sorted ids up to each frame's live count and
+    the starts bit for bit the parent's answer (``parent_sort``), with the
+    SHA-256 of both; its time by the profiler beside its bound, the
+    wrapper call's, and ``torch.sort`` of the 64-bit keys (library_ms).
+    -> (the sort's entry for the kernels line, sorted ids, starts)."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
     from gsworld_tpu_torch.render.binning import sort_entries
+
+    F, E = keys.shape
+    bits = max((F * (T + 1) - 1).bit_length(), 1)
+    got_k, got_p = rc.sort_tiles(keys.clone(), bits)
+    want_k, want_p = rc.sort_tiles_reference(keys, bits)
+    if not (torch.equal(got_k, want_k) and torch.equal(got_p, want_p)):
+        raise AssertionError(f"sort ({what}): keys or permutation differ "
+                             f"from torch.sort's")
+    gaus, starts, _ = sort_entries(keys.clone(), gid, T)
+    gaus_o, starts_o, key64 = parent_sort(keys, gid, depth, T)
+    live = starts[:, T].long()
+    same = torch.equal(starts, starts_o) and all(
+        torch.equal(gaus[f, :n], gaus_o[f, :n])
+        for f, n in enumerate(live.tolist()))
+    new_d = binning_digest(gaus, starts, overflow)
+    old_d = binning_digest(gaus_o, starts_o, overflow)
+    if not same or new_d != old_d:
+        raise AssertionError(f"sort ({what}): sorted ids or starts differ "
+                             f"from the 64-bit key sort's ({new_d} against "
+                             f"{old_d})")
+    log(f"phase {phase} sort, {what}: {F * E} keys of {bits} bits, sorted "
+        f"keys and permutation bit for bit torch.sort's; sorted ids and "
+        f"starts bit for bit the 64-bit key sort's, SHA-256 {new_d} (64-bit "
+        f"sort {old_d})")
+    if not timed:
+        return None, gaus, starts
+    buf = torch.empty_like(keys)
+
+    def launch():
+        buf.copy_(keys)
+        rc.sort_tiles(buf, bits)
+
+    ms, names = sort_kernels_ms(launch)
+    call_ms = cuda_ms(lambda: rc.sort_tiles(keys.clone(), bits), reps=10)
+    copy_ms = cuda_ms(lambda: buf.copy_(keys), reps=10)
+    # the device's clock: copies and sorts queued back to back, less the
+    # copies alone
+    burst = burst_ms(launch, k=10) - burst_ms(lambda: buf.copy_(keys), k=10)
+    plain_ms = cuda_ms(lambda: rc.sort_tiles_reference(keys, bits), reps=5)
+    library_ms = cuda_ms(lambda: torch.sort(key64.reshape(-1), stable=True),
+                         reps=5)
+    b, by, _ = sort_bound(F * E, bits)
+    kernel_ms = ms if ms is not None else call_ms - copy_ms
+    log(f"phase {phase} sort time, {what}: kernels "
+        + ("not measured by the profiler" if ms is None
+           else f"{ms:.4f} ms by the profiler (kernels seen in 10 calls, "
+           f"per call: {names})")
+        + f", {burst:.4f} ms back to back (less the keys' copies), "
+        f"{call_ms:.4f} ms for one wrapper call with the keys' copy "
+        f"({copy_ms:.4f} ms) between events; plain (torch.sort of the "
+        f"32-bit keys) {plain_ms:.4f} ms; torch.sort of the 64-bit keys "
+        f"{library_ms:.4f} ms; bound {b:.4f} ms ({by}), share of bound "
+        f"{100 * b / kernel_ms:.2f}%")
+    entry = dict(name="sort_tiles", route="cuda",
+                 source="gsworld_tpu_torch/csrc/sort_tiles.cu",
+                 replaces="gsworld_tpu/render/binning.py:109 (step 4)",
+                 max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
+                 bound_ms=b, bound_by=by, library_ms=library_ms,
+                 profiler_ms=ms, burst_ms=burst, call_ms=call_ms, bits=bits,
+                 digest=new_d)
+    return entry, gaus, starts
+
+
+def check_emit(phase, what, plan, depth, cfg, timed=True):
+    """Emit kernel vs its plain version on the plan_emit result ``plan``
+    (keys equal except within CULL_BORDER of the cull threshold, ids
+    equal, starts and entry order equal after the sort), the key sort
+    (``check_sort``; ``depth`` (F, N) the projection's), a line on what
+    the inputs look like, and the times, the emit's in both slot layouts.
+    -> (the emit kernel's and the sort's entries for the kernels line,
+    sorted Gaussian ids, starts)."""
+    import torch
+    from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.render.binning import slot_runs, sort_entries
 
     a = plan.args
     T, E = cfg.num_tiles, a["E"]
@@ -784,15 +949,16 @@ def check_emit(phase, what, plan, cfg, timed=True):
     n_flip = int(diff.sum())
     if n_flip:
         f, slot, score, _ = rc.emit_slots(
-            a["ends"], a["rect"], a["mean2d"], a["conic"], a["opacity"],
-            E=E, tile=cfg.tile)
+            a["ends"], a["order"], a["rect"], a["mean2d"], a["conic"],
+            a["opacity"], E=E, tile=cfg.tile)
         margin = torch.full_like(keys_k, 2 ** 40, dtype=torch.float32)
         margin.view(-1)[f * E + slot] = (score - rc.LOG_ALPHA_MIN).abs()
         worst = float(margin[diff].max())
         if worst >= CULL_BORDER:
             raise AssertionError(f"emit ({what}): {n_flip} keys differ, one "
                                  f"{worst:.3g} from the cull threshold")
-    gaus_k, starts_k, _ = sort_entries(keys_k, gid_k, T)
+    sort_entry, gaus_k, starts_k = check_sort(
+        phase, what, keys_k, gid_k, depth, plan.overflow, T, timed=timed)
     gaus_p, starts_p, _ = sort_entries(keys_p, gid_p, T)
     d_starts = int((starts_k.long() - starts_p.long()).abs().max())
     if n_flip == 0 and (d_starts or not torch.equal(gaus_k, gaus_p)):
@@ -812,7 +978,7 @@ def check_emit(phase, what, plan, cfg, timed=True):
         f"{starts_k[:, T].tolist()}, overflow {plan.overflow.tolist()}; "
         f"{n_flip} borderline cull flips, max |starts diff| {d_starts}")
     if not timed:
-        return None, gaus_k, starts_k
+        return None, None, gaus_k, starts_k
     # the bound is tens of microseconds: the back-to-back clock and the
     # profiler read the kernel, one wrapper call between two events reads
     # the host's checks, allocations and ctypes call with it
@@ -821,12 +987,21 @@ def check_emit(phase, what, plan, cfg, timed=True):
     prof_ms = profiler_kernel_ms(launch, "emit_kernel")
     call_ms = cuda_ms(lambda: rc.emit_entries(**a), reps=20)
     plain_ms = cuda_ms(lambda: rc.emit_entries_reference(**a), reps=10)
+    # the same kernel on the Gaussian-order layout the port had before:
+    # the identity for the ranking, the kept counts summed over ids
+    first, end = slot_runs(a["ends"], a["order"])
+    ids = torch.arange(cnt.shape[1], device=cnt.device, dtype=torch.int32)
+    by_id = dict(a, ends=torch.cumsum(end - first, -1, dtype=torch.int32),
+                 order=ids.expand(F, -1).contiguous())
+    id_ms = burst_ms(rc.emit_entries_launcher(**by_id)[0])
     b, by, _ = emit_bound(cnt, E)
     log(f"phase {phase} emit time, {what}: kernel {ms:.4f} ms back to back "
         f"({BURST} launches per window), "
         + ("profiler not measured" if prof_ms is None
            else f"{prof_ms:.4f} ms by the profiler")
-        + f", {call_ms:.4f} ms for one wrapper call between events; plain "
+        + f", {call_ms:.4f} ms for one wrapper call between events; the "
+        f"same kernel on slots in Gaussian order {id_ms:.4f} ms back to "
+        f"back ({ms - id_ms:+.4f} ms for the depth-rank layout); plain "
         f"{plain_ms:.4f} ms; bound {b:.4f} ms ({by}), share of bound "
         f"(bound / kernel) {100 * b / ms:.2f}%")
     entry = dict(name="emit_entries", route="cuda",
@@ -834,8 +1009,9 @@ def check_emit(phase, what, plan, cfg, timed=True):
                  replaces="gsworld_tpu/render/rasterize_pallas.py:117",
                  max_abs_err=float(d_starts), ms=ms, plain_ms=plain_ms,
                  bound_ms=b, bound_by=by, library_ms=None,
-                 profiler_ms=prof_ms, call_ms=call_ms)
-    return entry, gaus_k, starts_k
+                 profiler_ms=prof_ms, call_ms=call_ms,
+                 gaussian_order_ms=id_ms)
+    return entry, sort_entry, gaus_k, starts_k
 
 
 def phase_kernels(renderer, state, phase=3, tint=None, timed=True,
@@ -856,8 +1032,8 @@ def phase_kernels(renderer, state, phase=3, tint=None, timed=True,
     a = plan.args
     F = proj.depth.shape[0]
     what = f"{F} {'tinted ' if tint is not None else ''}render frames"
-    emit_entry, gaus_k, starts_k = check_emit(
-        phase, f"{what} {tuple(lead)}", plan, cfg, timed=timed)
+    emit_entry, sort_entry, gaus_k, starts_k = check_emit(
+        phase, f"{what} {tuple(lead)}", plan, proj.depth, cfg, timed=timed)
 
     sem = renderer.scene.semantics
     comp_args = (starts_k, gaus_k, proj.mean2d, proj.conic, proj.opacity,
@@ -909,6 +1085,7 @@ def phase_kernels(renderer, state, phase=3, tint=None, timed=True,
     log(work_line(3, work, [("composite", fwd, comp_ms)]))
     return [
         emit_entry,
+        sort_entry,
         dict(name="composite_tiles", route="cuda",
              source="gsworld_tpu_torch/csrc/composite.cu",
              replaces="gsworld_tpu/render/rasterize_pallas.py:323",
@@ -960,10 +1137,13 @@ def phase_project():
     frames of one render step of the e64 cell's shape (PROJECT_ENVS envs x
     2 cameras, 640x480, the full scene), with the gates of
     ``project_gates``; CUDA-event times of the wrapper call, the kernel
-    by the profiler and the plain path, beside the bound -> the kernel's
-    entry for the kernels line."""
+    by the profiler and the plain path, beside the bound; then the emit
+    kernel and the key sort on the kernel's projections (``check_emit``)
+    -> the preprocess kernel's entry for the kernels line, the emit
+    kernel's and the sort's at this shape."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.render.binning import plan_emit
     renderer = make_renderer("cuda", PROJECT_ENVS, BENCH_RASTER, BENCH_SIZES)
     state = random_states(renderer.env, 1, "cuda", seed=SEED + 17)[0]
     cfg, scene = renderer.raster_config, renderer.scene
@@ -978,7 +1158,11 @@ def phase_project():
         log(f"phase 3 project, {F} render frames ({PROJECT_ENVS} envs x "
             f"{F // PROJECT_ENVS} cameras) x {N} Gaussians: {text}; in view "
             f"{int((want.radius > 0).sum())} pairs")
+        plan, depth = plan_emit(got, cfg), got.depth
         del got, want
+        emit_e64, sort_e64, _, _ = check_emit(
+            3, f"{F} render frames ({PROJECT_ENVS} envs)", plan, depth, cfg)
+        del plan, depth
         ms = cuda_ms(lambda: rc.project_posed(*args), reps=20)
         prof_ms = profiler_kernel_ms(lambda: rc.project_posed(*args),
                                      KERNEL_NAMES["project_posed"], k=10)
@@ -1001,7 +1185,7 @@ def phase_project():
         f"(bound / kernel) {100 * b / kernel_ms:.2f}%")
     del renderer, args, slots, cams
     torch.cuda.empty_cache()
-    return dict(name="project_posed", route="cuda",
+    return emit_e64, sort_e64, dict(name="project_posed", route="cuda",
                 source="gsworld_tpu_torch/csrc/project.cu",
                 replaces="none (gs/transform.py:repose_scene + "
                          "render/project.py:project_gaussians, XLA in JAX)",
@@ -1284,7 +1468,7 @@ def phase_backward(setup):
     kernels line, the emit kernel's entry at this shape)."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
-    from gsworld_tpu_torch.render.binning import plan_emit
+    from gsworld_tpu_torch.render.binning import plan_emit, slot_runs
     from gsworld_tpu_torch.render.rasterize import bin_detached
 
     cfg = setup.cfg
@@ -1292,8 +1476,8 @@ def phase_backward(setup):
     flat, _ = train_inputs(setup)
     bins = bin_detached(flat, cfg)
     # the emit kernel at the training path's shape, on the same inputs
-    emit_train, gaus_e, starts_e = check_emit(
-        "3b", "1 training frame", plan_emit(flat, cfg), cfg)
+    emit_train, sort_train, gaus_e, starts_e = check_emit(
+        "3b", "1 training frame", plan_emit(flat, cfg), flat.depth, cfg)
     if not (torch.equal(gaus_e, bins.gaussian)
             and torch.equal(starts_e, bins.starts)):
         raise AssertionError("emit (training frame): the binning path's "
@@ -1312,8 +1496,9 @@ def phase_backward(setup):
     rows_p = rc.composite_bwd_reference(*bwd_args, **kw)
     torch.cuda.synchronize()
     N = flat.opacity.shape[1]
-    gk = rc.sum_entry_rows(rows_k, bins.perm, bins.ends)
-    gp = rc.sum_entry_rows(rows_p, bins.perm, bins.ends)
+    runs = slot_runs(bins.ends, bins.order)
+    gk = rc.sum_entry_rows(rows_k, bins.perm, *runs)
+    gp = rc.sum_entry_rows(rows_p, bins.perm, *runs)
     rel, abs_err = {}, 0.0
     for name, sl in (("mean2d", slice(0, 2)), ("conic", slice(2, 5)),
                      ("color", slice(5, 8)), ("opacity", slice(8, 9))):
@@ -1355,7 +1540,7 @@ def phase_backward(setup):
         raise AssertionError("composite_bwd: two calls on one input differ")
     log("phase 3b composite_bwd: a second call on the same inputs gives "
         "the same rows bit for bit")
-    return bwd_entry, rows_entry, emit_train
+    return bwd_entry, rows_entry, emit_train, sort_train
 
 
 def check_entry_rows(rows, bins, N):
@@ -1367,9 +1552,11 @@ def check_entry_rows(rows, bins, N):
     kernels-line entry."""
     import torch
     from gsworld_tpu_torch.render import rasterize_cuda as rc
+    from gsworld_tpu_torch.render.binning import slot_runs
     F, E, K = rows.shape
-    got = rc.sum_entry_rows(rows, bins.perm, bins.ends)
-    want = rc.sum_entry_rows_reference(rows, bins.perm, bins.ends)
+    runs = slot_runs(bins.ends, bins.order)
+    got = rc.sum_entry_rows(rows, bins.perm, *runs)
+    want = rc.sum_entry_rows_reference(rows, bins.perm, *runs)
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         d = float((got - want).abs().max())
@@ -1382,15 +1569,14 @@ def check_entry_rows(rows, bins, N):
     lib = torch.zeros_like(acc).index_add_(0, idx, flat_rows).reshape(F, N, K)
     lib_diff = float((lib - got).abs().max()) / max(
         float(got.abs().max()), 1e-30)
-    ms = cuda_ms(lambda: rc.sum_entry_rows(rows, bins.perm, bins.ends),
+    ms = cuda_ms(lambda: rc.sum_entry_rows(rows, bins.perm, *runs),
                  reps=20)
     plain_ms = cuda_ms(
-        lambda: rc.sum_entry_rows_reference(rows, bins.perm, bins.ends),
-        reps=3)
+        lambda: rc.sum_entry_rows_reference(rows, bins.perm, *runs), reps=3)
     library_ms = cuda_ms(lambda: acc.index_add_(0, idx, flat_rows), reps=20)
     # each input read once, each output written once
-    nbytes = (rows.numel() * 4 + bins.perm.numel() * 8
-              + bins.ends.numel() * 4 + got.numel() * 4)
+    nbytes = (rows.numel() * 4 + bins.perm.numel() * 4
+              + 2 * bins.ends.numel() * 4 + got.numel() * 4)
     bound_ms = 1e3 * nbytes / HBM_RATE
     ends = bins.ends.long()
     cnt = torch.diff(ends, dim=-1, prepend=torch.zeros_like(ends[:, :1]))
@@ -1512,9 +1698,9 @@ def train_run(setup, graph):
             prof, TRAIN_PROFILE_STEPS,
             f"train-step replays after the first densify (iterations "
             f"{window.start}-{window.stop - 1})",
-            {"emit_kernel": 1, "composite_kernel": 1,
-             "composite_bwd_kernel": 1, "entry_rows_kernel": 1,
-             "normal_newton_kernel": 0}, 1,
+            {"emit_kernel": 1, KERNEL_NAMES["sort_tiles"]: 1,
+             "composite_kernel": 1, "composite_bwd_kernel": 1,
+             "entry_rows_kernel": 1, "normal_newton_kernel": 0}, 1,
             TRAIN_PROFILE_STEPS, prof_wall[0])
     ms = [1000.0 * dt for dt, skip in step_s[5:] if not skip]
     return dict(scene=scene, losses=losses, counts=counts, peak=peak,
@@ -4500,14 +4686,20 @@ def main(argv=None):
         f"states and {TRAIN_VIEWS} training views in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(renderer, states[0])
-    kernels.append(phase_project())
-    bwd_entry, rows_entry, emit_train = phase_backward(setup)
+    emit_e64, sort_e64, project_entry = phase_project()
+    kernels.append(project_entry)
+    bwd_entry, rows_entry, emit_train, sort_train = phase_backward(setup)
     kernels += [bwd_entry, rows_entry]
-    # the emit entry's numbers are the render step's; its times on the
-    # training frame ride along
-    kernels[0]["train_frame"] = {k: emit_train[k] for k in (
-        "max_abs_err", "ms", "profiler_ms", "call_ms", "plain_ms",
-        "bound_ms", "bound_by")}
+    # the emit and sort entries' numbers are the render step's; their
+    # times at the e64 cell's 128 frames and on the training frame ride
+    # along
+    keep = ("max_abs_err", "ms", "profiler_ms", "burst_ms", "call_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "gaussian_order_ms", "bits", "digest")
+    for entry, e64, train in ((kernels[0], emit_e64, emit_train),
+                              (kernels[1], sort_e64, sort_train)):
+        entry["e64"] = {k: e64[k] for k in keep if k in e64}
+        entry["train_frame"] = {k: train[k] for k in keep if k in train}
     if args.kernels_only:
         log(json.dumps({"kernels": kernels}))
         return           # a partial run prints no result line

@@ -6,65 +6,63 @@
 // render/binning.py:bin_entries_fused).
 //
 // What it writes, per frame f of F and per slot of the E-entry budget:
-//   key = ((f * (T + 1) + tile) << 32) | float_bits(view depth)
+//   key = f * (T + 1) + tile    (32 bits)
 //   gid = Gaussian id
 // tile = T (the sentinel) when the Gaussian's maximum alpha over the
 // tile's pixel box is below 1/255 (the compositor would skip every pixel
 // of it); such entries keep their slot, so the budget counts them, as in
 // the TPU kernel.  Slots at or past the frame's kept total get the
-// sentinel key and gid -1.  One 64-bit radix sort of the keys then groups
-// entries per (frame, tile) in depth order.
+// sentinel key and gid -1.  A stable sort of the keys' low bits
+// (csrc/sort_tiles.cu) then groups entries per (frame, tile) and keeps
+// slot order within a group.
 //
-// Layout: slots are laid out in Gaussian order.  ends[f][g] is the
-// inclusive running sum, over Gaussian ids, of the entry counts that the
-// budget kept (0 for culled Gaussians and for those the budget dropped),
-// so Gaussian g owns slots [ends[g-1], ends[g]) and ends[N-1] is the
-// frame's total.  The order of the slots is free: the sort's key carries
-// the depth, and equal keys keep slot order, which is id order here as it
-// was under a stable depth ranking.  Because ends never passes the total
-// and a Gaussian without entries shares its end with its predecessor,
-// "the first g with ends[g] > e" is the owner of every kept slot e and
-// can land on no dropped or empty Gaussian.
+// Layout: slots follow the stable depth ranking of the frame's Gaussians
+// (as in the TPU kernel).  order[f][r] is the Gaussian of depth rank r
+// (equal depths rank by id), and ends[f][r] the inclusive running sum,
+// over ranks, of the entry counts that the budget kept; past the kept
+// prefix of the ranking ends holds the frame's total.  So the Gaussian
+// of rank r owns slots [ends[r-1], ends[r]), and slot order within a tile
+// is depth order, ties by id: the key needs no depth.  Because ends never
+// passes the total and a rank without entries shares its end with its
+// predecessor, "the first r with ends[r] > e" is the owner of every kept
+// slot e and can land on no dropped or empty rank.
 //
-// What bounds it on the card.  By bytes the stores lead (12 per slot
-// against ~48 per emitting Gaussian, a few slots each), and the cull is
-// ~50 f32 instructions per kept slot; at this size (3.1M slots, 0.02 ms
-// of bytes for 8 frames) neither is what the kernel waits for.  A block
-// lives ~6 us, and 4.4 of them go to the chain of dependent, scattered
-// loads that leads from a slot to its owner: the search (~2.0 us), then
-// the ends of the range and the owners' parameters (~2.4 us); the keys
-// take ~1.4 us and the stores 0.1 (tools/emit_times.py --stamps, NVIDIA
-// H100 80GB HBM3, 700 W).  A build held to 32 registers, with more
-// blocks resident, only stretched each phase, and a search with fewer
-// probes and more steps was slower: latency is the limit, not the SMs.
-// So the design is slot-parallel, keeps that chain short and lets many
-// small blocks run it side by side:
+// What bounds it on the card.  By bytes the stores lead (8 per slot
+// against ~52 per emitting Gaussian, a few slots each), and the cull is
+// ~50 f32 instructions per kept slot; neither is what the kernel waits
+// for.  A block lives a few microseconds, most of them in the chain of
+// dependent, scattered loads that leads from a slot to its owner: the
+// search, then the ends of the range, the owners' ids and their
+// parameters (tools/emit_times.py --stamps).  A build held to 32
+// registers, with more blocks resident, only stretched each phase, and a
+// search with fewer probes and more steps was slower: latency is the
+// limit, not the SMs.  So the design is slot-parallel, keeps that chain
+// short and lets many small blocks run it side by side:
 //   * A block owns kBlockSlots consecutive slots of one frame, a thread
 //     one pair of neighbouring slots, so that the lanes of a warp store
-//     one contiguous run: a 16-byte vector of two keys and an 8-byte
-//     vector of two ids per lane, 512 and 256 contiguous bytes per store
-//     instruction.  No thread loops over a Gaussian's entries.
+//     one contiguous run: an 8-byte vector of two keys and one of two ids
+//     per lane, 256 contiguous bytes per store instruction.  No thread
+//     loops over a Gaussian's entries.
 //   * Warps 0 and 1 find the owners of the block's first and last kept
-//     slot, g_lo and g_hi, by a 32-way search in global memory: four
+//     slot, r_lo and r_hi, by a 32-way search in global memory: four
 //     dependent loads for 222k Gaussians where a binary search chains
 //     eighteen.
-//   * The Gaussians of [g_lo, g_hi] that emit (ends[g] > ends[g-1]: one
-//     per slot of the block at most) are staged once in shared memory, in
-//     id order: first slot, id, rect origin and width, mean, conic,
-//     log(opacity), depth bits.  Where the range is short the block walks
-//     it, coalesced, and packs the emitters by a ballot scan: Gaussians
-//     without entries cost their 4-byte end and nothing else.  Where it
-//     is long (a few owners on either side of tens of thousands of
-//     Gaussians that emit nothing, as a camera that sees little of the
-//     scene gives) a walk would hold the block for many rounds; there
-//     each slot finds its owner itself by binary search over the range,
-//     and the slots that are their owner's first stage it.
+//   * The ranks of [r_lo, r_hi] that emit (ends[r] > ends[r-1]: one per
+//     slot of the block at most) are staged once in shared memory, in
+//     rank order: first slot, id, rect origin and width, mean, conic,
+//     log(opacity).  Where the range is short the block walks it,
+//     coalesced, reading each rank's two ends and its id order[r] side by
+//     side, and packs the emitters by a ballot scan: ranks without entries
+//     cost their 8 bytes and nothing else; the emitters' parameters are
+//     then gathered by id.  Where it is long (a few owners on either side
+//     of many ranks that emit nothing) a walk would hold the block for
+//     many rounds; there each slot finds its owner itself by binary search
+//     over the range, and the slots that are their owner's first stage it.
 //   * Each pair then finds its first slot's owner by binary search over
 //     the staged first slots; the second slot's owner is that one or the
 //     next (every staged owner holds a slot).  Then d = e - first,
 //     (tx, ty) row-major in the rect, the cull, the key.
 //   * Slots at or past the total take the sentinel in the same pass.
-// Gaussians are read in id order, not gathered through a depth ranking.
 // Built with -DGSW_EMIT_STAMPS the kernel also writes each block's
 // %globaltimer at its phase boundaries (tools/emit_times.py --stamps).
 
@@ -169,7 +167,6 @@ struct Owners {
   float2 mean[kBlockSlots];
   float A[kBlockSlots], B[kBlockSlots], C[kBlockSlots];
   float log_op[kBlockSlots];
-  unsigned dbits[kBlockSlots];
 };
 
 // One frame's inputs, and the staging of its Gaussian g as owner `at`.
@@ -178,7 +175,6 @@ struct Frame {
   const float2* mean2d;
   const float* conic;
   const float* opac;
-  const float* depth;
 
   __device__ __forceinline__ void stage(Owners& own, int at, int g,
                                         int first) const {
@@ -192,7 +188,6 @@ struct Frame {
     own.B[at] = conic[g * 3 + 1];
     own.C[at] = conic[g * 3 + 2];
     own.log_op[at] = logf(fmaxf(opac[g], 1e-12f));
-    own.dbits[at] = __float_as_uint(depth[g]);
   }
 };
 
@@ -215,13 +210,13 @@ __device__ __forceinline__ int owners_before(const int* counts, int warp,
 }
 
 __global__ void __launch_bounds__(kThreads) emit_kernel(
-    const int* __restrict__ ends,      // (F, N) inclusive slot ends per id
+    const int* __restrict__ ends,      // (F, N) inclusive slot ends per rank
+    const int* __restrict__ order,     // (F, N) Gaussian id per depth rank
     const int4* __restrict__ rect,     // (F, N) tile rect per Gaussian
     const float2* __restrict__ mean2d, // (F, N)
     const float* __restrict__ conic,   // (F, N, 3)
     const float* __restrict__ opac,    // (F, N)
-    const float* __restrict__ depth,   // (F, N)
-    long long* __restrict__ keys,      // (F, E) out
+    int* __restrict__ keys,            // (F, E) out
     int* __restrict__ gid,             // (F, E) out
     int N, int E, int gx, int T, int tile, int cull_alpha,
     float log_alpha_min) {
@@ -240,23 +235,23 @@ __global__ void __launch_bounds__(kThreads) emit_kernel(
   const int s0 = blockIdx.x * kBlockSlots;
   const long long fN = (long long)f * N;
   const int* __restrict__ fends = ends + fN;
-  const Frame frame = {rect + fN, mean2d + fN, conic + fN * 3, opac + fN,
-                       depth + fN};
+  const int* __restrict__ forder = order + fN;
+  const Frame frame = {rect + fN, mean2d + fN, conic + fN * 3, opac + fN};
   const int total = min(N > 0 ? fends[N - 1] : 0, E);
   const int kept_end = min(s0 + kBlockSlots, total);   // <= s0: none kept
 
-  // Owners of the block's first and last kept slot, by warps 0 and 1.
-  // ends is non-decreasing and ends[N-1] is the total, so a search for a
+  // Owner ranks of the block's first and last kept slot, by warps 0 and
+  // 1.  ends is non-decreasing and ends[N-1] is the total, so a search for a
   // slot at or past the total gives N; the searches do not wait for the
   // load of the total.
   if (warp == 0) {
-    const int g = warp_upper_bound(fends, N, s0, lane);
-    if (lane == 0) range[0] = g;
+    const int r = warp_upper_bound(fends, N, s0, lane);
+    if (lane == 0) range[0] = r;
   } else if (warp == 1) {
-    int g = warp_upper_bound(fends, N, s0 + kBlockSlots - 1, lane);
-    if (g == N && kept_end > s0)
-      g = warp_upper_bound(fends, N, kept_end - 1, lane);
-    if (lane == 0) range[1] = g;
+    int r = warp_upper_bound(fends, N, s0 + kBlockSlots - 1, lane);
+    if (r == N && kept_end > s0)
+      r = warp_upper_bound(fends, N, kept_end - 1, lane);
+    if (lane == 0) range[1] = r;
   }
   __syncthreads();
   STAMP(1)
@@ -264,24 +259,25 @@ __global__ void __launch_bounds__(kThreads) emit_kernel(
   const int e = s0 + 2 * tid;     // this thread's slots: e and e + 1
   int n_own = 0;
   if (kept_end > s0) {
-    const int g_lo = range[0];
-    const int g_hi = range[1];
-    if (g_hi - g_lo < kWalkMax) {
-      // Walk [g_lo, g_hi] once, kStage x kThreads Gaussians a round, and
-      // stage those that emit, in id order.
+    const int r_lo = range[0];
+    const int r_hi = range[1];
+    if (r_hi - r_lo < kWalkMax) {
+      // Walk [r_lo, r_hi] once, kStage x kThreads ranks a round, and stage
+      // those that emit, in rank order.
       int round = 0;
-      for (int base = g_lo; base <= g_hi;
+      for (int base = r_lo; base <= r_hi;
            base += kStage * kThreads, ++round) {
         int* counts = warp_count[round & 1];
-        int e0[kStage], e1[kStage];
+        int e0[kStage], e1[kStage], g[kStage];
         unsigned ballot[kStage];
 #pragma unroll
         for (int s = 0; s < kStage; ++s) {
-          const int g = base + s * kThreads + tid;
-          e0[s] = e1[s] = 0;
-          if (g <= g_hi) {
-            e1[s] = fends[g];
-            e0[s] = g > 0 ? fends[g - 1] : 0;
+          const int r = base + s * kThreads + tid;
+          e0[s] = e1[s] = g[s] = 0;
+          if (r <= r_hi) {
+            e1[s] = fends[r];
+            e0[s] = r > 0 ? fends[r - 1] : 0;
+            g[s] = forder[r];
           }
         }
 #pragma unroll
@@ -296,17 +292,17 @@ __global__ void __launch_bounds__(kThreads) emit_kernel(
         for (int s = 0; s < kStage; ++s) {
           if (e1[s] > e0[s])
             frame.stage(own, n_own + before[s] + __popc(ballot[s] & below),
-                        base + s * kThreads + tid, e0[s]);
+                        g[s], e0[s]);
         }
         n_own += found;
       }
     } else {
       // A few owners far apart.  Each slot finds its owner by binary
-      // search over [g_lo, g_hi], the thread's two slots in step so that
+      // search over [r_lo, r_hi], the thread's two slots in step so that
       // their loads fly together; a slot that is its owner's first in the
-      // block stages it, in slot order, which is id order.
-      int lo[2] = {g_lo, g_lo}, hi[2] = {g_hi, g_hi};
-      for (int left = g_hi - g_lo; left > 0; left >>= 1) {
+      // block stages it, in slot order, which is rank order.
+      int lo[2] = {r_lo, r_lo}, hi[2] = {r_hi, r_hi};
+      for (int left = r_hi - r_lo; left > 0; left >>= 1) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           if (lo[j] < hi[j]) {
@@ -332,18 +328,18 @@ __global__ void __launch_bounds__(kThreads) emit_kernel(
                __popc(ballot[1] & below);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        if (ballot[j] >> lane & 1u) frame.stage(own, at++, lo[j], first[j]);
+        if (ballot[j] >> lane & 1u)
+          frame.stage(own, at++, forder[lo[j]], first[j]);
       }
     }
   }
   __syncthreads();
   STAMP(2)
 
-  const unsigned long long fkey = (unsigned long long)f * (T + 1);
-  const long long sentinel = (long long)(((fkey + T) << 32) | 0x7f800000ull);
+  const int fkey = f * (T + 1);
   const long long fE = (long long)f * E;
   if (e < E) {
-    long long k2[2] = {sentinel, sentinel};
+    int k2[2] = {fkey + T, fkey + T};
     int g2[2] = {-1, -1};
     if (e < kept_end) {
       // last staged owner whose first slot is <= e
@@ -364,8 +360,7 @@ __global__ void __launch_bounds__(kThreads) emit_kernel(
           live = box_max_power(m.x, m.y, own.A[o], own.B[o], own.C[o], tx, ty,
                                tile) + own.log_op[o] >= log_alpha_min;
         }
-        const unsigned long long tk = fkey + (live ? ty * gx + tx : T);
-        k2[j] = (long long)((tk << 32) | own.dbits[o]);
+        k2[j] = fkey + (live ? ty * gx + tx : T);
         g2[j] = own.gid[o];
       }
     }
@@ -373,8 +368,7 @@ __global__ void __launch_bounds__(kThreads) emit_kernel(
     if ((E & 1) == 0) {
       // E even: every frame's slot e is aligned for the vectors, and
       // e + 1 < E
-      *reinterpret_cast<longlong2*>(keys + fE + e) =
-          make_longlong2(k2[0], k2[1]);
+      *reinterpret_cast<int2*>(keys + fE + e) = make_int2(k2[0], k2[1]);
       *reinterpret_cast<int2*>(gid + fE + e) = make_int2(g2[0], g2[1]);
     } else {
       keys[fE + e] = k2[0];
@@ -391,17 +385,16 @@ __global__ void __launch_bounds__(kThreads) emit_kernel(
 }  // namespace
 
 extern "C" int gsw_emit_entries(
-    const void* ends, const void* rect, const void* mean2d, const void* conic,
-    const void* opac, const void* depth, void* keys, void* gid, int F, int N,
+    const void* ends, const void* order, const void* rect, const void* mean2d,
+    const void* conic, const void* opac, void* keys, void* gid, int F, int N,
     int E, int gx, int T, int tile, int cull_alpha, float log_alpha_min,
     void* stream) {
   if (F <= 0 || E <= 0) return 0;
   const dim3 grid((E + kBlockSlots - 1) / kBlockSlots, F);
   emit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)ends, (const int4*)rect, (const float2*)mean2d,
-      (const float*)conic, (const float*)opac, (const float*)depth,
-      (long long*)keys, (int*)gid, N, E, gx, T, tile, cull_alpha,
-      log_alpha_min);
+      (const int*)ends, (const int*)order, (const int4*)rect,
+      (const float2*)mean2d, (const float*)conic, (const float*)opac,
+      (int*)keys, (int*)gid, N, E, gx, T, tile, cull_alpha, log_alpha_min);
   return (int)cudaGetLastError();
 }
 

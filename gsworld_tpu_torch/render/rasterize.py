@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from gsworld_tpu_torch.gs.transform import PosedGaussians
-from gsworld_tpu_torch.render.binning import EntryBins, bin_entries_fused
+from gsworld_tpu_torch.render.binning import (EntryBins, bin_entries_fused,
+                                              slot_runs)
 from gsworld_tpu_torch.render.camera import GSCamera, RasterConfig
 from gsworld_tpu_torch.render.project import Projected, project_frames
 from gsworld_tpu_torch.render.rasterize_cuda import (
@@ -47,20 +48,20 @@ class CompositeFunction(torch.autograd.Function):
             width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
         ctx.cfg = cfg
         ctx.save_for_backward(mean2d, conic, opacity, color, bins.starts,
-                              bins.gaussian, bins.ends, bins.perm, img,
-                              T_img, records)
+                              bins.gaussian, bins.ends, bins.order,
+                              bins.perm, img, T_img, records)
         return img, T_img
 
     @staticmethod
     def backward(ctx, img_ct, T_ct):
-        (mean2d, conic, opacity, color, starts, gaussian, ends, perm, img,
-         T_img, records) = ctx.saved_tensors
+        (mean2d, conic, opacity, color, starts, gaussian, ends, order, perm,
+         img, T_img, records) = ctx.saved_tensors
         cfg = ctx.cfg
         rows = composite_bwd(
             starts, gaussian, mean2d, conic, opacity, color, img, T_img,
             img_ct.contiguous(), T_ct.contiguous(), width=cfg.width,
             height=cfg.height, tile=cfg.tile, records=records)
-        acc = sum_entry_rows(rows, perm, ends)
+        acc = sum_entry_rows(rows, perm, *slot_runs(ends, order))
         return (acc[..., 0:2], acc[..., 2:5], acc[..., 8], acc[..., 5:8],
                 None, None)
 

@@ -4,6 +4,10 @@ and the launch counts are ``utils/kernels.py``'s.
 
   * ``emit_entries``    <- gsworld_tpu/render/rasterize_pallas.py:_emit_kernel
                            (csrc/emit.cu)
+  * ``sort_tiles``      <- the stable sort by tile id after it in
+                           gsworld_tpu/render/binning.py:
+                           bin_entries_fused (csrc/sort_tiles.cu; an XLA
+                           sort in JAX, not a Pallas kernel)
   * ``composite_tiles`` <- gsworld_tpu/render/rasterize_pallas.py:_segment_kernel
                            (csrc/composite.cu)
   * ``composite_bwd``   <- gsworld_tpu/render/rasterize_pallas.py:_bwd_kernel
@@ -21,6 +25,8 @@ Nothing on the CUDA path falls back to the plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -73,36 +79,38 @@ def _box_max_power(mx, my, A, B, C, tx, ty, tile: int):
 def emit_owner_reference(ends, E: int):
     """The slot-to-owner search of the emit kernel in plain PyTorch:
     ``ends`` (F, N) int32 holds, per frame, the inclusive running sum over
-    Gaussian ids of the kept entry counts, so Gaussian g owns slots
-    [ends[g-1], ends[g]).  -> (F, E) int64, the owner of every slot: the
-    first g with ``ends[g] > slot``, which skips Gaussians without entries
-    (they share their end with their predecessor); N for the slots at or
-    past the frame's total ``ends[:, -1]``."""
+    depth ranks of the kept entry counts, so the Gaussian of rank r owns
+    slots [ends[r-1], ends[r]).  -> (F, E) int64, the owner rank of every
+    slot: the first r with ``ends[r] > slot``, which skips ranks without
+    entries (they share their end with their predecessor); N for the
+    slots at or past the frame's total ``ends[:, -1]``."""
     F = ends.shape[0]
     slots = torch.arange(E, device=ends.device, dtype=ends.dtype)
     return torch.searchsorted(ends.contiguous(),
                               slots.expand(F, E).contiguous(), right=True)
 
 
-def emit_slots(ends, rect, mean2d, conic, opacity, *, E: int, tile: int):
+def emit_slots(ends, order, rect, mean2d, conic, opacity, *, E: int,
+               tile: int):
     """Every kept slot of the emit stage, enumerated in plain PyTorch:
     (frame, slot, cull score, (tile x, tile y, flat Gaussian index)), in
-    (frame, slot) order.  The cull score is ``box max power +
-    log(opacity)``; the alpha cull keeps a slot when it is >=
-    LOG_ALPHA_MIN, so ``score - LOG_ALPHA_MIN`` tells borderline entries
-    apart when kernel and plain version disagree."""
+    (frame, slot) order; ``order`` (F, N) is the Gaussian of each depth
+    rank.  The cull score is ``box max power + log(opacity)``; the alpha
+    cull keeps a slot when it is >= LOG_ALPHA_MIN, so ``score -
+    LOG_ALPHA_MIN`` tells borderline entries apart when kernel and plain
+    version disagree."""
     N = ends.shape[1]
     owner = emit_owner_reference(ends, E)
     f, slot = torch.nonzero(owner < N, as_tuple=True)
-    g = owner[f, slot]
-    first = torch.where(g > 0, ends[f, (g - 1).clamp_min(0)].long(),
-                        torch.zeros_like(g))
+    r = owner[f, slot]
+    first = torch.where(r > 0, ends[f, (r - 1).clamp_min(0)].long(),
+                        torch.zeros_like(r))
     d = slot - first
-    gi = f * N + g
-    r = rect.reshape(-1, 4)[gi].long()
-    w = (r[:, 2] - r[:, 0]).clamp_min(1)
+    gi = f * N + order[f, r].long()
+    box = rect.reshape(-1, 4)[gi].long()
+    w = (box[:, 2] - box[:, 0]).clamp_min(1)
     dy = d // w
-    tx, ty = r[:, 0] + d - dy * w, r[:, 1] + dy
+    tx, ty = box[:, 0] + d - dy * w, box[:, 1] + dy
     m = mean2d.reshape(-1, 2)[gi]
     c = conic.reshape(-1, 3)[gi]
     pw = _box_max_power(m[:, 0], m[:, 1], c[:, 0], c[:, 1], c[:, 2],
@@ -111,7 +119,7 @@ def emit_slots(ends, rect, mean2d, conic, opacity, *, E: int, tile: int):
     return f, slot, pw + lop, (tx, ty, gi)
 
 
-def emit_entries_reference(ends, rect, mean2d, conic, opacity, depth, *,
+def emit_entries_reference(ends, order, rect, mean2d, conic, opacity, *,
                            E: int, gx: int, T: int, tile: int,
                            cull_alpha: bool):
     """Plain PyTorch version of the emit kernel (same inputs/outputs as
@@ -119,24 +127,21 @@ def emit_entries_reference(ends, rect, mean2d, conic, opacity, depth, *,
     F, N = ends.shape
     dev = ends.device
     f, slot, score, (tx, ty, gi) = emit_slots(
-        ends, rect, mean2d, conic, opacity, E=E, tile=tile)
+        ends, order, rect, mean2d, conic, opacity, E=E, tile=tile)
     tile_id = ty * gx + tx
     if cull_alpha:
         tile_id = torch.where(score >= LOG_ALPHA_MIN, tile_id,
                               torch.full_like(tile_id, T))
-    dbits = depth.reshape(-1)[gi].contiguous().view(torch.int32).long()
-    key = ((f * (T + 1) + tile_id) << 32) | dbits
-    fr = torch.arange(F, device=dev, dtype=torch.int64)
-    keys = (((fr * (T + 1) + T) << 32) | 0x7F800000)[:, None].expand(
-        F, E).contiguous()
+    fr = torch.arange(F, device=dev, dtype=torch.int32)
+    keys = (fr * (T + 1) + T)[:, None].expand(F, E).contiguous()
     gid = torch.full((F, E), -1, dtype=torch.int32, device=dev)
     flat = f * E + slot
-    keys.view(-1)[flat] = key
+    keys.view(-1)[flat] = (f * (T + 1) + tile_id).to(torch.int32)
     gid.view(-1)[flat] = (gi - f * N).to(torch.int32)
     return keys, gid
 
 
-def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
+def emit_entries_launcher(ends, order, rect, mean2d, conic, opacity, *,
                           E: int, gx: int, T: int, tile: int,
                           cull_alpha: bool, lib=None):
     """Check the CUDA inputs of :func:`emit_entries`, build the kernels if
@@ -150,10 +155,11 @@ def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
     F, N = ends.shape
     i32, f32 = torch.int32, torch.float32
     for name, t, dt, shp in (
-            ("ends", ends, i32, (F, N)), ("rect", rect, i32, (F, N, 4)),
+            ("ends", ends, i32, (F, N)), ("order", order, i32, (F, N)),
+            ("rect", rect, i32, (F, N, 4)),
             ("mean2d", mean2d, f32, (F, N, 2)),
             ("conic", conic, f32, (F, N, 3)),
-            ("opacity", opacity, f32, (F, N)), ("depth", depth, f32, (F, N))):
+            ("opacity", opacity, f32, (F, N))):
         require(t, name, dt, shp, dev)
     if F * (T + 1) >= 2 ** 31:
         raise ValueError("frame/tile key does not fit 32 bits")
@@ -165,11 +171,11 @@ def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
         raise ValueError("rect and mean2d must start on 16 and 8 bytes")
     lib = lib or build_kernels()
     with torch.cuda.device(dev):
-        keys = torch.empty((F, E), dtype=torch.int64, device=dev)
+        keys = torch.empty((F, E), dtype=i32, device=dev)
         gid = torch.empty((F, E), dtype=i32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (ends.data_ptr(), rect.data_ptr(), mean2d.data_ptr(),
-            conic.data_ptr(), opacity.data_ptr(), depth.data_ptr(),
+    args = (ends.data_ptr(), order.data_ptr(), rect.data_ptr(),
+            mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
             keys.data_ptr(), gid.data_ptr(), F, N, E, gx, T, tile,
             int(cull_alpha), LOG_ALPHA_MIN, stream)
 
@@ -181,28 +187,79 @@ def emit_entries_launcher(ends, rect, mean2d, conic, opacity, depth, *,
     return launch, keys, gid
 
 
-def emit_entries(ends, rect, mean2d, conic, opacity, depth, *, E: int,
+def emit_entries(ends, order, rect, mean2d, conic, opacity, *, E: int,
                  gx: int, T: int, tile: int, cull_alpha: bool):
     """Expand Gaussians into per-(tile, Gaussian) entries, slots laid out
-    in Gaussian order.
+    in the stable depth ranking.
 
     Args (F frames, N Gaussians): ``ends`` (F, N) int32, the inclusive
-    running sum over Gaussian ids of the entry counts the budget kept
-    (Gaussian g owns slots [ends[g-1], ends[g]), row-major over its tile
-    rect; ``ends[:, -1] <= E`` is the frame's total); ``rect`` (F, N, 4)
-    int32; ``mean2d`` (F, N, 2), ``conic`` (F, N, 3), ``opacity``/``depth``
-    (F, N) f32.
-    Returns ``keys`` (F, E) int64 = ((f (T+1) + tile) << 32) | depth bits
-    (tile = T for culled and unused slots) and ``gid`` (F, E) int32
-    (-1 in unused slots)."""
+    running sum over depth ranks of the entry counts the budget kept (the
+    Gaussian of rank r owns slots [ends[r-1], ends[r]), row-major over its
+    tile rect; ``ends[:, -1] <= E`` is the frame's total); ``order`` (F,
+    N) int32, the Gaussian of each rank; ``rect`` (F, N, 4) int32;
+    ``mean2d`` (F, N, 2), ``conic`` (F, N, 3), ``opacity`` (F, N) f32, by
+    Gaussian id.
+    Returns ``keys`` (F, E) int32 = f (T+1) + tile (tile = T for culled
+    and unused slots) and ``gid`` (F, E) int32 (-1 in unused slots)."""
     kw = dict(E=E, gx=gx, T=T, tile=tile, cull_alpha=cull_alpha)
     if ends.device.type == "cpu":
-        return emit_entries_reference(ends, rect, mean2d, conic, opacity,
-                                      depth, **kw)
-    launch, keys, gid = emit_entries_launcher(ends, rect, mean2d, conic,
-                                              opacity, depth, **kw)
+        return emit_entries_reference(ends, order, rect, mean2d, conic,
+                                      opacity, **kw)
+    launch, keys, gid = emit_entries_launcher(ends, order, rect, mean2d,
+                                              conic, opacity, **kw)
     launch()
     return keys, gid
+
+
+# --------------------------------------------------------------------- #
+# the key sort
+# --------------------------------------------------------------------- #
+
+def sort_tiles_reference(keys, end_bit: int):
+    """Plain PyTorch version of :func:`sort_tiles` (same inputs and
+    outputs): ``torch.sort(stable=True)`` of the flat keys, which sorts
+    all 32 bits."""
+    s = torch.sort(keys.reshape(-1), stable=True)
+    return s.values, s.indices.to(torch.int32)
+
+
+def sort_tiles(keys, end_bit: int):
+    """Stable sort of the int32 ``keys`` (any shape, read flat), each in
+    [0, 2**end_bit) -> (sorted keys (n,) int32, perm (n,) int32: sorted
+    position -> flat index).  Equal keys keep their order.  On the card
+    one call of csrc/sort_tiles.cu, which sorts bits [0, end_bit) only and
+    takes ``keys`` as one of its buffers: their contents after the call
+    are unspecified.  On the CPU the plain version."""
+    if keys.device.type == "cpu":
+        return sort_tiles_reference(keys, end_bit)
+    dev = cuda_device(keys, "sort_tiles")
+    with torch.cuda.device(dev):     # the stream's device is current
+        n = keys.numel()
+        require(keys, "keys", torch.int32, keys.shape, dev)
+        if n >= 2 ** 31:
+            raise ValueError("slot indices do not fit the sort's int32")
+        if not 0 < end_bit < 32:
+            raise ValueError(f"end_bit {end_bit} is not in [1, 31]")
+        lib = build_kernels()
+        temp_bytes = ctypes.c_size_t()
+        check(lib, lib.gsw_sort_tiles_temp_bytes(n, end_bit,
+                                                 ctypes.byref(temp_bytes)),
+              "sort_tiles")
+        temp = torch.empty((max(temp_bytes.value, 1),), dtype=torch.uint8,
+                           device=dev)
+        keys = keys.reshape(-1)
+        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        keys_alt, vals_alt = torch.empty_like(keys), torch.empty_like(vals)
+        selector = ctypes.c_int()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(lib, lib.gsw_sort_tiles(
+            temp.data_ptr(), temp_bytes.value, keys.data_ptr(),
+            keys_alt.data_ptr(), vals.data_ptr(), vals_alt.data_ptr(), n,
+            end_bit, ctypes.byref(selector), stream), "sort_tiles")
+        launch_counts["sort_tiles"] += 1
+        if selector.value:
+            return keys_alt, vals_alt
+        return keys, vals
 
 
 # --------------------------------------------------------------------- #
@@ -667,20 +724,19 @@ def composite_bwd(starts, gaussian, mean2d, conic, opacity, color, img,
 # per-Gaussian sum of the entry rows
 # --------------------------------------------------------------------- #
 
-def sum_entry_rows_reference(rows, perm, ends):
+def sum_entry_rows_reference(rows, perm, first, end):
     """Plain PyTorch version of :func:`sum_entry_rows` (same inputs and
     output), adding in the kernel's order: the rows are gathered to slot
     order, then step k < the largest count adds each Gaussian's k-th
     slot's row (+0.0 past its count, which changes no sum)."""
     F, E, K = rows.shape
-    N = ends.shape[1]
+    N = first.shape[1]
     dev = rows.device
     pos = torch.empty((F * E,), dtype=torch.int64, device=dev)
-    pos[perm.reshape(-1)] = torch.arange(F * E, device=dev)
+    pos[perm.reshape(-1).long()] = torch.arange(F * E, device=dev)
     slot_rows = rows.reshape(F * E, K)[pos].reshape(F, E, K)
-    ends = ends.long()
-    first = torch.nn.functional.pad(ends[:, :-1], (1, 0))
-    cnt = ends - first
+    first = first.long()
+    cnt = end.long() - first
     acc = torch.zeros((F, N, K), dtype=rows.dtype, device=dev)
     zero = torch.zeros((), dtype=rows.dtype, device=dev)
     for k in range(int(cnt.max()) if cnt.numel() else 0):
@@ -690,36 +746,39 @@ def sum_entry_rows_reference(rows, perm, ends):
     return acc
 
 
-def sum_entry_rows(rows, perm, ends):
+def sum_entry_rows(rows, perm, first, end):
     """Per-Gaussian sums (F, N, K) of the per-entry rows ``rows`` (F, E, K)
     f32 at sorted positions, in a fixed order: Gaussian g adds the rows of
-    its slots ``ends[g-1] .. ends[g] - 1`` in slot order, each read at its
-    sorted position.  ``perm`` (F, E) int64 is the key sort's permutation
-    (sorted position -> f * E + slot) and ``ends`` (F, N) int32 the
-    inclusive slot ends (both from ``EntryBins``).  The same inputs give
-    the same bits every time, as the JAX package's scatter-add does; an
-    ``index_add_`` on the card adds in no fixed order.  On the card one
-    launch of csrc/entry_rows.cu; on the CPU the plain version."""
+    its slots ``first[g] .. end[g] - 1`` in slot order, each read at its
+    sorted position.  ``perm`` (F, E) int32 is the key sort's permutation
+    (sorted position -> f * E + slot, ``EntryBins.perm``); ``first`` and
+    ``end`` (F, N) int32 are each Gaussian's run of slots
+    (``binning.slot_runs``).  The same inputs give the same bits every
+    time, as the JAX package's scatter-add does; an ``index_add_`` on the
+    card adds in no fixed order.  On the card one launch of
+    csrc/entry_rows.cu; on the CPU the plain version."""
     if rows.device.type == "cpu":
-        return sum_entry_rows_reference(rows, perm, ends)
+        return sum_entry_rows_reference(rows, perm, first, end)
     dev = cuda_device(rows, "sum_entry_rows")
     with torch.cuda.device(dev):     # the stream's device is current
         F, E, K = rows.shape
-        N = ends.shape[1]
+        N = first.shape[1]
         if K != BWD_FIELDS:
             raise ValueError(f"rows have {K} fields, expected {BWD_FIELDS}")
         require(rows, "rows", torch.float32, (F, E, K), dev)
-        require(perm, "perm", torch.int64, (F, E), dev)
-        require(ends, "ends", torch.int32, (F, N), dev)
-        if E >= 2 ** 31:
+        require(perm, "perm", torch.int32, (F, E), dev)
+        require(first, "first", torch.int32, (F, N), dev)
+        require(end, "end", torch.int32, (F, N), dev)
+        if F * E >= 2 ** 31:
             raise ValueError("slot indices do not fit the kernel's int32")
         lib = build_kernels()
         pos = torch.empty((F, E), dtype=torch.int32, device=dev)
         out = torch.empty((F, N, K), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gsw_sum_entry_rows(rows.data_ptr(), perm.data_ptr(),
-                                    ends.data_ptr(), pos.data_ptr(),
-                                    out.data_ptr(), F, N, E, stream)
+                                    first.data_ptr(), end.data_ptr(),
+                                    pos.data_ptr(), out.data_ptr(), F, N, E,
+                                    stream)
         check(lib, rc, "sum_entry_rows")
         launch_counts["sum_entry_rows"] += 1
         return out

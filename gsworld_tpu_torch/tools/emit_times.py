@@ -1,8 +1,9 @@
 """The emit kernel of one checkout on one GPU: what its inputs look like,
 its time by three clocks, the bin stage's kernel time split into its
-parts, and a digest of the binning's outputs, at the two shapes of
-``chip_smoke.py`` (the 8 frames of a render step; one 640x480 frame of the
-training scene at its capacity).
+parts, and a digest of the binning's outputs, at the three shapes of
+``chip_smoke.py`` (the 8 frames of a render step of 4 envs; the 128 of
+one of 64 envs, the e64 cell's; one 640x480 frame of the training scene
+at its capacity).
 
     python3 gsworld_tpu_torch/tools/emit_times.py [--root DIR]
 
@@ -19,8 +20,9 @@ for both.  Per shape it prints
     two events), by the profiler's device duration of the kernel, and by
     one wrapper call between two events, with its bound;
   * the kernel time of ``bin_entries_fused`` per call, split into depth
-    sort, plan operations, emit, key sort, ``searchsorted`` and the rest,
-    from a torch.profiler window;
+    sort, plan operations, emit, key sort (``torch.sort`` of 64-bit keys
+    or ``sort_tiles``, whichever the checkout calls), ``searchsorted`` and
+    the rest, from a torch.profiler window;
   * the SHA-256 of ``gaussian[:, :starts[:, T]]``, ``starts`` and
     ``overflow``.
 The bin stage's kernels, by name, go to ``chiprun_out/bin_kernels_*.txt``.
@@ -33,7 +35,6 @@ staging the owners, computing the keys, storing (this checkout only).
 
 import argparse
 import ctypes
-import hashlib
 import importlib.util
 import os
 import sys
@@ -56,8 +57,9 @@ def load_smoke():
 
 
 def entry_counts(a):
-    """Kept entries per Gaussian (F, N) from the emit arguments ``a`` of
-    either layout: counts per depth rank, or inclusive ends per Gaussian."""
+    """Kept entries per Gaussian (F, N), in slot order, from the emit
+    arguments ``a`` of any layout: counts per depth rank, or inclusive
+    ends per depth rank or per Gaussian."""
     import torch
     if "cnt" in a:
         return a["cnt"].long()
@@ -91,19 +93,26 @@ def raw_launcher(rc, a):
 def bin_split(proj, cfg, calls=10):
     """Kernel time (ms per call) of bin_entries_fused by part, from a
     profiler window over ``calls`` calls with the two sorts and the
-    searchsorted wrapped in ranges."""
+    searchsorted wrapped in ranges: the first ``torch.sort`` of a call is
+    the depth sort, the key sort is its second or ``sort_tiles``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from gsworld_tpu_torch.render import binning
 
     real_sort, real_search = torch.sort, torch.searchsorted
+    real_tiles = getattr(binning, "sort_tiles", None)
     n_sort = [0]
 
     def sort(*args, **kw):
         n_sort[0] += 1
-        with record_function("emt.sort%d" % (n_sort[0] % 2)):
+        with record_function("emt.depth_sort" if n_sort[0] == 1
+                             else "emt.key_sort"):
             return real_sort(*args, **kw)
+
+    def sort_tiles(*args, **kw):
+        with record_function("emt.key_sort"):
+            return real_tiles(*args, **kw)
 
     def searchsorted(*args, **kw):
         with record_function("emt.searchsorted"):
@@ -112,15 +121,20 @@ def bin_split(proj, cfg, calls=10):
     binning.bin_entries_fused(proj, cfg)
     torch.cuda.synchronize()
     torch.sort, torch.searchsorted = sort, searchsorted
+    if real_tiles is not None:
+        binning.sort_tiles = sort_tiles
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
+                n_sort[0] = 0
                 with record_function("emt.bin"):
                     binning.bin_entries_fused(proj, cfg)
             torch.cuda.synchronize()
     finally:
         torch.sort, torch.searchsorted = real_sort, real_search
+        if real_tiles is not None:
+            binning.sort_tiles = real_tiles
     avg = prof.key_averages()
     rng = {e.key: e.device_time_total / calls / 1e3 for e in avg
            if e.key.startswith("emt.") and e.device_type != DeviceType.CUDA}
@@ -128,8 +142,8 @@ def bin_split(proj, cfg, calls=10):
             for e in avg if e.device_type == DeviceType.CUDA
             and not e.key.startswith("emt.")]
     emit = sum(t for k, t, _ in kern if KERNEL_NAME in k)
-    parts = {"depth sort": rng.get("emt.sort1", 0.0),
-             "key sort": rng.get("emt.sort0", 0.0),
+    parts = {"depth sort": rng.get("emt.depth_sort", 0.0),
+             "key sort": rng.get("emt.key_sort", 0.0),
              "searchsorted": rng.get("emt.searchsorted", 0.0), "emit": emit}
     total = rng.get("emt.bin", 0.0)
     parts["plan ops, gather of ids and the rest"] = total - sum(parts.values())
@@ -170,17 +184,6 @@ def block_phases(rc, a, tag):
                       for k, n in enumerate(names)), flush=True)
 
 
-def digest(bins, T):
-    import torch
-    h = hashlib.sha256()
-    live = bins.starts[:, T].long()
-    for f in range(bins.gaussian.shape[0]):
-        h.update(bins.gaussian[f, :int(live[f])].cpu().numpy().tobytes())
-    h.update(bins.starts.cpu().numpy().tobytes())
-    h.update(bins.overflow.to(torch.int64).cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
 def report(cs, tag, proj, cfg, stamps=False):
     import torch
     from gsworld_tpu_torch.render import binning
@@ -219,7 +222,9 @@ def report(cs, tag, proj, cfg, stamps=False):
     print(f"{tag} bin stage: {total:.4f} ms of kernels per call in "
           f"{launches} launches: "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
-    print(f"{tag} digest {digest(bins, cfg.num_tiles)}", flush=True)
+    print(f"{tag} digest "
+          f"{cs.binning_digest(bins.gaussian, bins.starts, bins.overflow)}",
+          flush=True)
     if stamps:
         block_phases(rc, a, tag)
 
@@ -246,6 +251,12 @@ def main(argv=None):
     proj, _ = cs.render_inputs(renderer, state)
     report(cs, f"{name} render step", proj, renderer.raster_config,
            args.stamps)
+    e64 = cs.make_renderer("cuda", cs.PROJECT_ENVS, cs.BENCH_RASTER,
+                           cs.BENCH_SIZES)
+    proj64, _ = cs.render_inputs(e64, cs.random_states(e64.env, 1, "cuda")[0])
+    report(cs, f"{name} e64 render step", proj64, e64.raster_config,
+           args.stamps)
+    del e64, proj64
     setup = cs.TrainSetup(renderer.scene, cs.TRAIN_RASTER, "cuda")
     report(cs, f"{name} train frame", cs.train_inputs(setup)[0], setup.cfg,
            args.stamps)

@@ -4,8 +4,8 @@ their launch counts, and the argument checks their wrappers share.
 The wrappers live with the code that calls them:
 
   * ``render/rasterize_cuda.py``: the render's and training's kernels
-    (csrc/emit.cu, composite.cu, composite_bwd.cu, entry_rows.cu,
-    project.cu);
+    (csrc/emit.cu, sort_tiles.cu, composite.cu, composite_bwd.cu,
+    entry_rows.cu, project.cu);
   * ``physics/world.py:normal_newton``: the contact solver's normal
     Newton stage (csrc/contact_newton.cu);
   * ``utils/profiling.py:stamp``: the device stamps (csrc/stamp.cu).
@@ -36,8 +36,8 @@ from gsworld_tpu_torch.utils.profiling import counters
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("emit.cu", "composite.cu", "composite_bwd.cu", "entry_rows.cu",
-           "stamp.cu", "project.cu", "contact_newton.cu")
+SOURCES = ("emit.cu", "sort_tiles.cu", "composite.cu", "composite_bwd.cu",
+           "entry_rows.cu", "stamp.cu", "project.cu", "contact_newton.cu")
 # --fmad=false: every f32 product rounds on its own, as in the plain
 # PyTorch versions, so kernel and plain version agree to the last bits
 # (the alpha cull's threshold compare is the sensitive one)
@@ -47,8 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel since the last reset (the counter registry's
 # ``kernel_launches`` group); the plain versions do not count
 launch_counts = counters.group("kernel_launches", (
-    "emit_entries", "composite_tiles", "composite_bwd", "sum_entry_rows",
-    "project_posed", "normal_newton"))
+    "emit_entries", "sort_tiles", "composite_tiles", "composite_bwd",
+    "sum_entry_rows", "project_posed", "normal_newton"))
 
 
 def reset_launch_counts():
@@ -128,13 +128,18 @@ def build_kernels() -> ctypes.CDLL:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     LL = ctypes.c_longlong
     bind_emit(lib)
+    lib.gsw_sort_tiles_temp_bytes.argtypes = [I, I, P]
+    lib.gsw_sort_tiles_temp_bytes.restype = I
+    lib.gsw_sort_tiles.argtypes = ([P, ctypes.c_size_t] + [P] * 4
+                                   + [I, I, P, P])
+    lib.gsw_sort_tiles.restype = I
     lib.gsw_composite_tiles.argtypes = [P] * 11 + [I] * 8 + [Fl] * 5 + [P]
     lib.gsw_composite_tiles.restype = I
     lib.gsw_composite_bwd_parts.argtypes = [I]
     lib.gsw_composite_bwd_parts.restype = I
     lib.gsw_composite_bwd.argtypes = [P] * 7 + [I] * 8 + [Fl, P]
     lib.gsw_composite_bwd.restype = I
-    lib.gsw_sum_entry_rows.argtypes = [P] * 5 + [I] * 3 + [P]
+    lib.gsw_sum_entry_rows.argtypes = [P] * 6 + [I] * 3 + [P]
     lib.gsw_sum_entry_rows.restype = I
     lib.gsw_stamp.argtypes = [P, I, I, P]
     lib.gsw_stamp.restype = I

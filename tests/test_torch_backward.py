@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 import chip_smoke
 from gsworld_tpu_torch.render import rasterize_cuda as rc
+from gsworld_tpu_torch.render.binning import slot_runs
 from gsworld_tpu_torch.render.camera import RasterConfig
 from gsworld_tpu_torch.render.project import Projected
 from gsworld_tpu_torch.render.rasterize import CompositeFunction, bin_detached
@@ -88,7 +89,8 @@ def test_plain_backward_matches_autograd_f64():
         tile=tile)
     assert rows.shape == (1, cfg.max_entries, rc.BWD_FIELDS)
     assert not rows[0, int(bins.starts[0, -1]):].any()
-    acc = rc.sum_entry_rows(rows, bins.perm, bins.ends)
+    acc = rc.sum_entry_rows(rows, bins.perm,
+                            *slot_runs(bins.ends, bins.order))
     got = (acc[..., 0:2], acc[..., 2:5], acc[..., 8], acc[..., 5:8])
     for name, a, b in zip(("mean2d", "conic", "opacity", "color"), want, got):
         scale = float(a.abs().max())

@@ -10,7 +10,9 @@
       (and a sum in sorted order would not);
   (d) the sum against a literal float32 loop in slot order, bit for bit;
   (e) EntryBins' slot layout and sort permutation against the binning's
-      own outputs;
+      own outputs, and the sum over the depth-rank layout bit for bit
+      against the same sum over the Gaussian-order layout the port had
+      before (tests/test_torch_emit.py:parent_layout_bins);
   (f) the SSIM blur's shifted adds against the replicate-pad convolution
       they replaced, and their backward by gradcheck;
   (g) utils.determinism: one train step calls no op that adds in no fixed
@@ -30,7 +32,7 @@ import jax.numpy as jnp
 from gsworld_tpu_torch.gs import synthetic
 from gsworld_tpu_torch.gs.model import scene_from_splats
 from gsworld_tpu_torch.render import rasterize_cuda as rc
-from gsworld_tpu_torch.render.binning import plan_emit
+from gsworld_tpu_torch.render.binning import plan_emit, slot_runs
 from gsworld_tpu_torch.render.camera import RasterConfig, make_camera
 from gsworld_tpu_torch.render.project import Projected
 from gsworld_tpu_torch.render.rasterize import bin_detached
@@ -40,6 +42,7 @@ from gsworld_tpu_torch.train3dgs.optim import OptimizationParams, adam_init
 from gsworld_tpu_torch.train3dgs.train import TrainState, make_train_step
 from gsworld_tpu_torch.utils.determinism import OpAudit, audit
 from tests.test_torch_backward import _jax_and_port, _splats2d
+from tests.test_torch_emit import parent_layout_bins
 
 FIELDS = (("mean2d", slice(0, 2)), ("conic", slice(2, 5)),
           ("color", slice(5, 8)), ("opacity", slice(8, 9)))
@@ -75,7 +78,7 @@ def test_fixed_order_sum_matches_jax_pallas():
                                 jnp.asarray(g_T), img, T)
     rows = _plain_rows(port, bins, cfg, torch.as_tensor(g_img)[None],
                        torch.as_tensor(g_T)[None])
-    acc = rc.sum_entry_rows(rows, bins.perm, bins.ends)[0]
+    acc = rc.sum_entry_rows(rows, bins.perm, *_runs(bins))[0]
     for name, sl in FIELDS:
         a = np.asarray(want[name]).reshape(acc.shape[0], -1)
         b = acc[:, sl].numpy()
@@ -83,6 +86,10 @@ def test_fixed_order_sum_matches_jax_pallas():
         assert scale > 0, name
         np.testing.assert_allclose(b / scale, a / scale, atol=1e-3,
                                    err_msg=name)
+
+
+def _runs(bins):
+    return slot_runs(bins.ends, bins.order)
 
 
 def _rows_and_bins(seed=0, n=60, W=64, H=48, tile=16):
@@ -115,7 +122,7 @@ def test_fixed_order_sum_matches_index_add():
                           dtype=torch.float32)
     rows = _plain_rows(port, bins, cfg, g_img, g_T)
     N = port["opacity"].shape[1]
-    got = rc.sum_entry_rows(rows, bins.perm, bins.ends)
+    got = rc.sum_entry_rows(rows, bins.perm, *_runs(bins))
     idx = bins.gaussian.long().clamp_min(0).reshape(-1)
     old = torch.zeros((N, rc.BWD_FIELDS)).index_add_(
         0, idx, rows.reshape(-1, rc.BWD_FIELDS))[None]
@@ -132,19 +139,21 @@ def test_sum_depends_on_slot_order_only():
     in sorted order (index_add_ on the CPU) changes its last bits."""
     rows, bins, n = _rows_and_bins()
     F, E, K = rows.shape
-    want = rc.sum_entry_rows(rows, bins.perm, bins.ends)
+    want = rc.sum_entry_rows(rows, bins.perm, *_runs(bins))
     sigma = torch.as_tensor(np.random.default_rng(3).permutation(E))
     rows2 = torch.empty_like(rows)
     perm2 = torch.empty_like(bins.perm)
     rows2[:, sigma] = rows
     perm2[:, sigma] = bins.perm
-    got = rc.sum_entry_rows(rows2, perm2, bins.ends)
+    got = rc.sum_entry_rows(rows2, perm2, *_runs(bins))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
     def sorted_order_sum(r, perm):
-        slot = perm.reshape(-1)
+        slot = perm.reshape(-1).long()
         f = slot // E
-        owner = rc.emit_owner_reference(bins.ends, E)          # (F, E)
+        rank = rc.emit_owner_reference(bins.ends, E)           # (F, E)
+        owner = torch.where(rank < n, torch.gather(
+            bins.order.long(), 1, rank.clamp_max(n - 1)), n)
         gid = torch.where(owner.reshape(-1)[slot] < n,
                           f * n + owner.reshape(-1)[slot], F * n)
         acc = torch.zeros((F * n + 1, K))
@@ -157,31 +166,35 @@ def test_sum_depends_on_slot_order_only():
 
 
 def test_sum_is_a_float32_loop_in_slot_order():
-    """(d) Each Gaussian's sum is 0.0f + row(slot ends[g-1]) + ... +
-    row(slot ends[g] - 1) in float32, bit for bit, with each slot's row
-    read at its sorted position."""
+    """(d) Each Gaussian's sum is 0.0f + row(its first slot) + ... +
+    row(its last slot) in float32, bit for bit, with each slot's row read
+    at its sorted position; Gaussian g's slots are the run of its depth
+    rank r, ends[r-1] .. ends[r] - 1."""
     rows, bins, n = _rows_and_bins(seed=4)
     F, E, K = rows.shape
-    got = rc.sum_entry_rows(rows, bins.perm, bins.ends).numpy()
+    got = rc.sum_entry_rows(rows, bins.perm, *_runs(bins)).numpy()
     r = rows.numpy()
     pos = np.empty(F * E, np.int64)
     pos[bins.perm.reshape(-1).numpy()] = np.arange(F * E)
-    ends = bins.ends.numpy()
+    ends, order = bins.ends.numpy(), bins.order.numpy()
     assert (np.diff(ends, axis=1) > 1).any()
     for f in range(F):
-        for g in range(n):
+        for rank in range(n):
+            g = order[f, rank]
             acc = np.zeros(K, np.float32)
-            for k in range(ends[f, g - 1] if g else 0, ends[f, g]):
+            for k in range(ends[f, rank - 1] if rank else 0,
+                           ends[f, rank]):
                 acc = acc + r.reshape(F * E, K)[pos[f * E + k]]
             assert np.array_equal(acc.view(np.int32),
                                   got[f, g].view(np.int32)), (f, g)
 
 
 def test_entry_bins_carry_slot_layout_and_perm():
-    """(e) ``EntryBins.ends`` is plan_emit's slot ends; ``perm`` maps each
-    sorted position to its frame's slot: the emitted ids read through it
-    are the sorted ids (``gid[perm] == gaussian``), and every live entry
-    lies in its Gaussian's slot range."""
+    """(e) ``EntryBins.ends`` and ``.order`` are plan_emit's slot ends and
+    ranking; ``perm`` maps each sorted position to its frame's slot: the
+    emitted ids read through it are the sorted ids (``gid[perm] ==
+    gaussian``), and every live entry lies in its Gaussian's run of slots
+    (``slot_runs``)."""
     W, H, tile = 64, 48, 16
     frames = [_splats2d(60, W, H, seed=10 + f, tile=tile,
                         dtype=torch.float32) for f in range(2)]
@@ -192,18 +205,52 @@ def test_entry_bins_carry_slot_layout_and_perm():
     keys, gid = rc.emit_entries(**plan.args)
     F, E = gid.shape
     assert torch.equal(bins.ends, plan.args["ends"])
-    assert bins.perm.shape == (F, E) and bins.perm.dtype == torch.int64
-    assert torch.equal(gid.reshape(-1)[bins.perm], bins.gaussian)
+    assert torch.equal(bins.order, plan.args["order"])
+    assert bins.perm.shape == (F, E) and bins.perm.dtype == torch.int32
+    assert torch.equal(gid.reshape(-1)[bins.perm.long()], bins.gaussian)
     f = torch.arange(F)[:, None]
     slot = bins.perm - f * E
     assert bool(((slot >= 0) & (slot < E)).all())
     live = torch.arange(E)[None] < bins.starts[:, -1:]
     g = bins.gaussian.long().clamp_min(0)
-    first = torch.where(g > 0, torch.gather(
-        bins.ends, 1, (g - 1).clamp_min(0)), 0)
-    last = torch.gather(bins.ends, 1, g)
-    assert bool(((first <= slot) & (slot < last))[live].all())
+    first, end = _runs(bins)
+    assert first.dtype == end.dtype == torch.int32
+    assert bool(((torch.gather(first, 1, g) <= slot)
+                 & (slot < torch.gather(end, 1, g)))[live].all())
     assert int(live.sum()) > 100
+
+
+@pytest.mark.parametrize("budget", [1024, 150])
+def test_sum_keeps_its_bits_across_layouts(budget):
+    """(e) The per-Gaussian sums over the depth-rank layout equal, bit for
+    bit, those over the Gaussian-order layout the port had before (each
+    Gaussian's runs of slots in Gaussian order, the 64-bit key sort's
+    permutation), on the same rows at the same sorted positions: a
+    Gaussian's slots, their order and their sorted positions are the
+    same in both; where the budget binds too."""
+    W, H, tile = 64, 48, 16
+    frames = [_splats2d(60, W, H, seed=20 + f, tile=tile,
+                        dtype=torch.float32) for f in range(2)]
+    proj = Projected(*(torch.cat(xs) for xs in zip(*frames)))
+    cfg = RasterConfig(width=W, height=H, tile=tile, max_entries=budget)
+    bins = bin_detached(proj, cfg)
+    gaussian, starts, _, ends, perm = parent_layout_bins(proj, cfg)
+    assert torch.equal(bins.starts, starts)
+    F, E = bins.gaussian.shape
+    rng = np.random.default_rng(budget)
+    rows = (rng.normal(size=(F, E, rc.BWD_FIELDS))
+            * 10.0 ** rng.uniform(-3, 3, (F, E, 1))).astype(np.float32)
+    live = torch.arange(E)[None] < bins.starts[:, -1:]
+    rows = torch.where(live[..., None], torch.as_tensor(rows), 0.0)
+    ends = torch.as_tensor(ends.astype(np.int32))
+    got = rc.sum_entry_rows(rows, bins.perm, *_runs(bins))
+    want = rc.sum_entry_rows(
+        rows, perm.to(torch.int32),
+        torch.nn.functional.pad(ends[:, :-1], (1, 0)), ends)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int(live.sum()) > 100
+    if budget == 150:
+        assert int(bins.overflow.min()) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -271,9 +318,9 @@ def test_train_step_calls_no_nondeterministic_op(monkeypatch):
     no op that adds in no fixed order on the card (the SSIM convolution
     and pad and the per-Gaussian index_add_ were such ops)."""
     mode = OpAudit()
-    for name in ("emit_entries_reference", "composite_tiles_reference",
-                 "pack_records_reference", "composite_bwd_reference",
-                 "sum_entry_rows_reference"):
+    for name in ("emit_entries_reference", "sort_tiles_reference",
+                 "composite_tiles_reference", "pack_records_reference",
+                 "composite_bwd_reference", "sum_entry_rows_reference"):
         plain = getattr(rc, name)
 
         def ignored(*a, _plain=plain, **k):

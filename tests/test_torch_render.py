@@ -316,6 +316,9 @@ class TestCompositor:
         with pytest.raises(ValueError, match="not supported"):
             rasterize_cuda.emit_entries(**meta)
         with pytest.raises(ValueError, match="not supported"):
+            rasterize_cuda.sort_tiles(
+                torch.zeros(1, 8, dtype=torch.int32, device="meta"), 9)
+        with pytest.raises(ValueError, match="not supported"):
             rasterize_cuda.composite_tiles(
                 *(x.to("meta") for x in (
                     torch.zeros(1, cfg.num_tiles + 1, dtype=torch.int32),
@@ -333,6 +336,7 @@ class TestCompositor:
             tp.conic[None], tp.opacity[None], tp.color[None], None,
             width=cfg.width, height=cfg.height, tile=cfg.tile, bg=cfg.bg)
         assert rasterize_cuda.launch_counts == {"emit_entries": 0,
+                                                "sort_tiles": 0,
                                                 "composite_tiles": 0,
                                                 "composite_bwd": 0,
                                                 "sum_entry_rows": 0,
